@@ -1,0 +1,47 @@
+"""Carry the reference's state across: keys and arrays.
+
+This system has no weights.  What crosses from the JAX package is its PRNG
+key (as the (1, 2) uint32 key words its fused kernel hashes) and its arrays
+(inputs, a materialized Omega, results) as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.shgemm_fused import key_pair
+
+# numpy dtypes that torch.from_numpy rejects (ml_dtypes' extension types),
+# by name: converted through an integer view of the same width.
+_VIEW_DTYPES = {
+    ("bfloat16", 2): (np.int16, torch.bfloat16),
+    ("float8_e4m3fn", 1): (np.int8, torch.float8_e4m3fn),
+    ("float8_e5m2", 1): (np.int8, torch.float8_e5m2),
+}
+
+
+def key_from_seed(seed: int) -> tuple[int, int]:
+    """The key words of the reference's ``jax.random.PRNGKey(seed)``:
+    ``(seed >> 32, seed & 0xFFFFFFFF)``."""
+    return (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
+
+
+def key_words_from_numpy(words: np.ndarray) -> tuple[int, int]:
+    """(k0, k1) from the reference's ``key_words`` as a (1, 2) uint32 array."""
+    words = np.asarray(words)
+    if words.size != 2:
+        raise ValueError(f"key words must hold 2 words, got shape {words.shape}")
+    return key_pair(words.astype(np.uint32))
+
+
+def from_reference(x) -> torch.Tensor:
+    """A reference array (``np.asarray(jax_array)``) as a CPU tensor of the
+    same dtype, without importing ``ml_dtypes``: bf16 and fp8 arrays go
+    through an integer view of the same width."""
+    x = np.ascontiguousarray(np.asarray(x))
+    view = _VIEW_DTYPES.get((x.dtype.name, x.dtype.itemsize))
+    if view is not None:
+        int_dtype, torch_dtype = view
+        return torch.from_numpy(x.view(int_dtype).copy()).view(torch_dtype)
+    return torch.from_numpy(x.copy())

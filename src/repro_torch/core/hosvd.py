@@ -1,0 +1,173 @@
+"""Random-projection HOSVD (paper Algorithm 2) and tensor utilities (port of
+the one-shot part of ``repro/core/hosvd.py``).
+
+RP-HOSVD factorizes A in R^{I1 x ... x IN} as a core tensor contracted with
+orthonormal factors Q_k, from one random projection + QR per mode.  The
+mode-k projection W = A_(k) . Omega_(k) is the O(prod(I) * J_k) hot spot and
+runs through the mixed-precision sketch.
+
+Documented deviation: the reference derives the per-mode keys with
+``jax.random.split(key, ndim)``, which torch cannot reproduce.  The port
+derives them in ``_mode_keys`` by counter-hashing the key words with the
+mode index on stream 6 of the fused kernel's lattice (a stream no
+distribution uses).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import projection as proj
+from repro_torch.device import on_device, resolve_device
+from repro_torch.kernels import shgemm_fused as _f
+from repro_torch.kernels.ref import dot_f32 as _dot
+
+_MODE_KEY_STREAM = 6
+
+
+class TuckerResult(NamedTuple):
+    core: torch.Tensor                 # (J1, ..., JN)
+    factors: tuple[torch.Tensor, ...]  # Q_k: (I_k, J_k)
+
+
+def unfold(t: torch.Tensor, mode: int) -> torch.Tensor:
+    """Mode-k unfolding: (I_k, prod_{j!=k} I_j)."""
+    perm = (mode,) + tuple(i for i in range(t.ndim) if i != mode)
+    return t.permute(perm).reshape(t.shape[mode], -1)
+
+
+def fold(m: torch.Tensor, mode: int, shape: Sequence[int]) -> torch.Tensor:
+    """Inverse of unfold."""
+    full = (shape[mode],) + tuple(s for i, s in enumerate(shape) if i != mode)
+    t = m.reshape(full)
+    inv = list(range(1, mode + 1)) + [0] + list(range(mode + 1, len(shape)))
+    return t.permute(inv)
+
+
+def mode_dot(t: torch.Tensor, m: torch.Tensor, mode: int) -> torch.Tensor:
+    """Contraction T x_k M with M: (J, I_k), applied as M . T_(k)."""
+    res = _dot(m, unfold(t, mode))
+    new_shape = list(t.shape)
+    new_shape[mode] = m.shape[0]
+    return fold(res, mode, new_shape)
+
+
+def _mode_keys(key, ndim: int) -> list[tuple[int, int]]:
+    """Per-mode key words: (bits(i, 0), bits(i, 1)) of the key's lattice on
+    stream 6 (the port's stand-in for ``jax.random.split``)."""
+    k0, k1 = _f.key_pair(key)
+    rows = torch.arange(ndim, dtype=torch.int64)[:, None]
+    cols = torch.arange(2, dtype=torch.int64)[None, :]
+    words = _f.counter_bits(k0, k1, rows, cols, _MODE_KEY_STREAM)
+    return [tuple(int(w) for w in row) for row in words.tolist()]
+
+
+def _mode_sketch(key, core: torch.Tensor, i: int, rank: int, *, method, dist,
+                 omega_dtype) -> torch.Tensor:
+    """W = A_(i) . Omega_i for one mode — the per-mode hot GEMM."""
+    if dist == "khatri_rao":
+        raise NotImplementedError(
+            "dist='khatri_rao' needs core/structured.py (KhatriRaoOmega), "
+            "which is not ported yet")
+    return proj.sketch(key, unfold(core, i), rank, method=method, dist=dist,
+                       omega_dtype=omega_dtype, device=core.device)
+
+
+def rp_hosvd(key, a, ranks: tuple[int, ...], *,
+             method: proj.ProjectionMethod = "shgemm",
+             dist: proj.SketchDist = "gaussian", omega_dtype=torch.bfloat16,
+             device=None) -> TuckerResult:
+    """Paper Algorithm 2: per mode W = A_(i) . Omega_i, Q_i <- QR(W); then
+    core g = A x_1 Q_1^T ... x_N Q_N^T."""
+    dev = resolve_device(device)
+    a = on_device(a, dev).to(torch.float32)
+    keys = _mode_keys(key, a.ndim)
+    factors = []
+    for i in range(a.ndim):
+        w = _mode_sketch(keys[i], a, i, ranks[i], method=method, dist=dist,
+                         omega_dtype=omega_dtype)                # line 2
+        q, _ = torch.linalg.qr(w)                                # line 3
+        factors.append(q)
+    core = a
+    for i, q in enumerate(factors):
+        core = mode_dot(core, q.T, i)                            # line 5
+    return TuckerResult(core, tuple(factors))
+
+
+def rp_sthosvd(key, a, ranks: tuple[int, ...], *,
+               method: proj.ProjectionMethod = "shgemm",
+               dist: proj.SketchDist = "gaussian", omega_dtype=torch.bfloat16,
+               device=None) -> TuckerResult:
+    """Sequentially truncated variant: each mode's projection runs on the
+    already-compressed tensor, cutting the later GEMMs."""
+    dev = resolve_device(device)
+    core = on_device(a, dev).to(torch.float32)
+    keys = _mode_keys(key, core.ndim)
+    factors = []
+    for i in range(core.ndim):
+        w = _mode_sketch(keys[i], core, i, ranks[i], method=method, dist=dist,
+                         omega_dtype=omega_dtype)
+        q, _ = torch.linalg.qr(w)
+        factors.append(q)
+        core = mode_dot(core, q.T, i)
+    return TuckerResult(core, tuple(factors))
+
+
+def truncate_tucker(res: TuckerResult, tol: float, *,
+                    min_rank: int = 1) -> TuckerResult:
+    """Per-mode adaptive rank truncation: rotate each mode into the core's
+    singular basis and keep the smallest rank whose discarded tail fits that
+    mode's share of the error budget (tail² <= tol²·||core||²/N)."""
+    if tol <= 0.0:
+        raise ValueError(f"tol must be > 0, got {tol}")
+    core = res.core.to(torch.float32)
+    factors = list(res.factors)
+    ndim = core.ndim
+    total2 = float(torch.sum(core * core))
+    budget2 = (float(tol) ** 2) * total2 / ndim
+    for i in range(ndim):
+        u, s, _ = torch.linalg.svd(unfold(core, i), full_matrices=False)
+        s2 = s.detach().cpu().numpy().astype(np.float64) ** 2
+        revcum = np.cumsum(s2[::-1])[::-1]  # revcum[r] = sum_{j>=r} s2[j]
+        keep = len(s2)
+        for r in range(max(1, int(min_rank)), len(s2)):
+            if revcum[r] <= budget2:
+                keep = r
+                break
+        factors[i] = _dot(factors[i], u[:, :keep])
+        core = mode_dot(core, u[:, :keep].T, i)
+    return TuckerResult(core, tuple(factors))
+
+
+def reconstruct(res: TuckerResult) -> torch.Tensor:
+    t = res.core
+    for i, q in enumerate(res.factors):
+        t = mode_dot(t, q, i)
+    return t
+
+
+def reconstruction_error(a: torch.Tensor, res: TuckerResult) -> torch.Tensor:
+    a = a.to(torch.float32)
+    return torch.linalg.norm(a - reconstruct(res)) / torch.linalg.norm(a)
+
+
+def make_test_tensor(gen: torch.Generator, dims: Sequence[int],
+                     ranks: Sequence[int], pad: int = 2) -> torch.Tensor:
+    """Paper Algorithm 3: low-multilinear-rank test tensor on ``gen.device``.
+
+    G ~ U(-1,1)^{J1 x ... x JN}; per mode contract with a (J_i - pad)-rank
+    matrix Omega_b . Omega_a mapping J_i -> I_i.
+    """
+    def unif(shape):
+        u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+        return u * 2.0 - 1.0
+    g = unif(tuple(ranks))
+    for i, (ii, ji) in enumerate(zip(dims, ranks)):
+        oa = unif((ji - pad, ji))
+        ob = unif((ii, ji - pad))
+        g = mode_dot(g, _dot(ob, oa), i)
+    return g

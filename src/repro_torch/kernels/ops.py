@@ -1,0 +1,132 @@
+"""Public wrappers around the hand-written kernels (port of
+``repro/kernels/ops.py``).
+
+``shgemm(a, b)`` takes arbitrary shapes: it pads to block multiples, runs
+kernel 1 (``kernels/shgemm.py``) and slices the padding off.
+``shgemm_fused(a, key, n)`` is the zero-device-memory-Omega variant
+(``kernels/shgemm_fused.py``).  Both run on the card unless the caller
+passes ``device="cpu"``, where the kernels' plain versions run.
+
+Blocks come from ``heuristic_blocks`` (the port's copy of the reference's
+shrink-to-fit heuristic, with this card's defaults) unless ``blocks=`` is
+given.  The autotuner is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import on_device, resolve_device
+from repro_torch.kernels import shgemm as _k
+from repro_torch.kernels import shgemm_fused as _kf
+
+# Streaming multiprocessors of an H100 SXM: the heuristic shrinks bm until
+# the output grid has at least this many blocks (or bm reaches 32).
+SM_COUNT = 132
+
+
+def _round_up(x: int, align: int) -> int:
+    return ((x + align - 1) // align) * align
+
+
+def heuristic_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """Default blocks shrunk to small problems: the smallest supported bm/bn
+    that covers the dim, bk rounded up to the 32-deep stage; then bm halves
+    while the grid has fewer blocks than the card has SMs."""
+    bm = next((b for b in _k.SUPPORTED_BM if b >= m), _k.DEFAULT_BM)
+    bn = next((b for b in _k.SUPPORTED_BN if b >= n), _k.DEFAULT_BN)
+    bk = min(_k.DEFAULT_BK, _round_up(max(k, 1), _k.STAGE_K))
+    while bm > _k.SUPPORTED_BM[0] and (-(-m // bm)) * (-(-n // bn)) < SM_COUNT:
+        bm //= 2
+    return bm, bn, bk
+
+
+def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
+    p0 = (-x.shape[0]) % m0
+    p1 = (-x.shape[1]) % m1
+    if p0 or p1:
+        x = F.pad(x, (0, p1, 0, p0))
+    return x.contiguous()
+
+
+def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
+           terms: int = 2, device=None) -> torch.Tensor:
+    """C_f32 = A_f32 @ B_lowp for arbitrary shapes.
+
+    B may be bf16 or fp16; any other B is cast to bf16.  A is cast to f32.
+    """
+    dev = resolve_device(device)
+    a = on_device(a, dev).to(torch.float32)
+    b = on_device(b, dev)
+    if b.dtype not in (torch.bfloat16, torch.float16):
+        b = b.to(torch.bfloat16)
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    bm, bn, bk = heuristic_blocks(m, n, k) if blocks is None else blocks
+    c = _k.shgemm_pallas(_pad_to(a, bm, bk), _pad_to(b, bk, bn), bm=bm, bn=bn,
+                         bk=bk, terms=terms)
+    return c[:m, :n]
+
+
+def shgemm_nt(a, b_t, **kw) -> torch.Tensor:
+    """C = A @ B_t^T (B stored transposed, e.g. row-major random matrices)."""
+    return shgemm(a, b_t.T, **kw)
+
+
+def _validate_offset(name: str, value, unit: int) -> None:
+    """Block-alignment check for offsets (clear error, per the streaming
+    contract of the reference's DESIGN.md §10)."""
+    if isinstance(value, (int, np.integer)):
+        if value < 0:
+            raise ValueError(f"{name}={value} must be >= 0")
+        if value % unit:
+            raise ValueError(
+                f"{name}={value} is not a multiple of the {unit}-wide kernel "
+                f"block on that axis; streamed tiles must be block-aligned "
+                f"with the one-shot lattice (pass blocks=... explicitly to "
+                f"pick a compatible tiling, or align the offset)")
+
+
+def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
+                 omega_dtype=torch.bfloat16,
+                 blocks: tuple[int, int, int] | None = None, terms: int = 2,
+                 s: float | None = None, row_offset: int = 0,
+                 col_offset: int = 0, device=None) -> torch.Tensor:
+    """C_f32 = A_f32 @ Omega(key)[row_offset:+k, col_offset:+n], Omega
+    generated in-kernel.
+
+    A is zero-padded to block multiples: pad rows of A null the extra
+    generated Omega rows and pad columns are sliced off, so the result does
+    not depend on the padding.  An fp8 ``omega_dtype`` is storage only: the
+    samples round through fp8 and are consumed as bf16.  ``row_offset``
+    must be a multiple of the resolved ``bk``; ``col_offset`` any value
+    >= 0.  For ``dist="very_sparse"`` on a partial row block, pass the
+    global data dimension's ``s``: the default comes from this call's k.
+    """
+    if dist in ("srht", "khatri_rao"):
+        raise ValueError(
+            f"dist={dist!r} is a structured family with no GEMM to fuse — "
+            f"use core.projection.sketch (SRHT O(n log n) apply path) or "
+            f"core.structured.KhatriRaoOmega instead of the fused kernel")
+    dev = resolve_device(device)
+    a = on_device(a, dev).to(torch.float32)
+    m, k = a.shape
+    if omega_dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        compute_dtype = torch.bfloat16  # e8m7 superset of both fp8 formats
+    elif omega_dtype in (torch.bfloat16, torch.float16):
+        compute_dtype = omega_dtype
+    else:
+        raise TypeError(f"omega_dtype must be bf16/fp16/fp8, got {omega_dtype}")
+    bm, bn, bk = heuristic_blocks(m, n, k) if blocks is None else blocks
+    _validate_offset("row_offset", row_offset, bk)
+    _validate_offset("col_offset", col_offset, 1)
+    n_pad = n + (-n) % bn
+    c = _kf.shgemm_fused_pallas(
+        _pad_to(a, bm, bk), key, n_pad, bm=bm, bn=bn, bk=bk, terms=terms,
+        dist=dist, s=_kf._resolve_s(dist, s, k), store_dtype=omega_dtype,
+        lowp_dtype=compute_dtype, offsets=(row_offset, col_offset))
+    return c[:m, :n]

@@ -1,0 +1,117 @@
+"""The PyTorch port (src/repro_torch) stands alone: importing it pulls in no
+jax, no ml_dtypes and nothing of the reference package; no source of it (or
+chip_smoke.py) imports them; and its entry points refuse to fall back to the
+CPU when CUDA is absent and the caller did not ask for the CPU."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import main_path
+from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
+from repro_torch.core import hosvd, lstsq, projection as proj, rsvd
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops, shgemm_fused as kf
+
+torch.set_num_threads(1)  # small shapes: leave the cores to the other test workers
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro", "triton")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_pulls_in_no_jax_or_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'repro', 'triton'))\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14  # every module was imported
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, node.lineno, name)
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+
+
+_A = torch.ones((4, 3))
+_KEY = (0, 1)
+_SMALL_RSVD = dataclasses.replace(PAPER_RSVD, n=16, rank=2)
+_SMALL_HOSVD = dataclasses.replace(PAPER_HOSVD, dims=(4, 4, 4), ranks=(2, 2, 2))
+ENTRY_POINTS = {
+    "resolve_device": lambda **d: resolve_device(**d),
+    "ops.shgemm": lambda **d: ops.shgemm(_A, torch.ones((3, 2)), **d),
+    "ops.shgemm_fused": lambda **d: ops.shgemm_fused(_A, _KEY, 2, **d),
+    "reference_omega": lambda **d: kf.reference_omega(_KEY, (3, 2), **d),
+    "project": lambda **d: proj.project(_A, torch.ones((3, 2)), **d),
+    "sketch": lambda **d: proj.sketch(_KEY, _A, 2, **d),
+    "materialize_omega": lambda **d: proj.materialize_omega(_KEY, (3, 2), **d),
+    "fused_omega": lambda **d: proj.fused_omega(_KEY, (3, 2), **d),
+    "gaussian": lambda **d: proj.gaussian(_KEY, (3, 2), **d),
+    "rsvd": lambda **d: rsvd.rsvd(_KEY, _A, 1, **d),
+    "range_finder": lambda **d: rsvd.range_finder(_KEY, _A, 1, **d),
+    "nystrom_eigh": lambda **d: rsvd.nystrom_eigh(_KEY, torch.eye(4), 1, **d),
+    "singular_values_exp": lambda **d: rsvd.singular_values_exp(8, 2, 1e-3, **d),
+    "rp_hosvd": lambda **d: hosvd.rp_hosvd(_KEY, torch.ones((4, 4, 4)), (2, 2, 2), **d),
+    "rp_sthosvd": lambda **d: hosvd.rp_sthosvd(_KEY, torch.ones((4, 4, 4)), (2, 2, 2), **d),
+    "lstsq": lambda **d: lstsq.sketch_precond_lstsq(_KEY, torch.ones((8, 2)), torch.ones(8), **d),
+    "main_path": lambda **d: main_path.run_main_path(_SMALL_RSVD, _SMALL_HOSVD, **d),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_refuses_cpu_fallback(name):
+    """device=None means CUDA: without CUDA it raises rather than carrying on
+    on the CPU; device="cpu" runs."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name](device="cuda")
+    ENTRY_POINTS[name](device="cpu")
+
+
+def test_kernel_wrapper_raises_for_non_cpu_non_cuda_tensor():
+    from repro_torch.kernels import shgemm as k1
+    a = torch.empty((32, 32), device="meta")
+    b = torch.empty((32, 32), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        k1.shgemm_pallas(a, b, bm=32, bn=32, bk=32)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kf.shgemm_fused_pallas(a, _KEY, 32, bm=32, bn=32, bk=32)
