@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the repository root on a machine with one CUDA card and ``nvcc``.
+Run from the repository root on a machine with one CUDA card and ``nvcc``
+(about 200 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -22,7 +23,23 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    version, the f32 ``torch.matmul`` of the same product (``library_ms``)
    and the least time the card could take (``bound_ms``); end-to-end rSVD
    and RP-HOSVD per method (methods in turns), and a torch.profiler
-   breakdown of one call of each.
+   breakdown of one call of each;
+5. kernels 3-4 vs their plain versions: flash attention at qwen3-0.6b's
+   prefill shape (1, 32768, 16|8, 128) bf16, a ragged S and f32; factored
+   decode at the engine's shape (8, 2048, 8, 128), r = 32, comp_len mixed,
+   write_pos mid-cache, garbage past it, NaN factors where comp_len = 0;
+6. prefill at full width (28 layers, random weights from a seed; batch cut
+   from 32 to 1): ``make_prefill_step`` with kernel 3 vs the plain
+   attention, then grow_cache + one decode step vs a full forward, in bf16
+   activations (counted, timed) and in f32 activations;
+7. the engine at full width (8 slots x 2048, rank-32 sketches swapping
+   every 64 rows, 8 prompts of 128 tokens, 96 new): kernel vs plain
+   engines in teacher-forced lockstep in bf16 (kernel 4's launches
+   counted) and in f32, one traced swap, then the bf16 kernel engine alone
+   (tokens/s, decode step, peak memory, one traced decode step);
+8. timings of kernels 3-4: kernel, plain version, bound and library call
+   (``scaled_dot_product_attention`` for flash; none exists for factored
+   decode).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +64,21 @@ RSVD_SHAPE = (4096, 4096, 266)     # A (m, k) @ Omega (k, p_hat = 256 + 10)
 HOSVD_SHAPE = (256, 65536, 32)     # mode-0 unfolding of 256^3 @ (65536, 32)
 REPS = 3
 E2E_REPS = 5
+
+
+# Serving slice (qwen3-0.6b at full width).  Prefill: prefill_32k's
+# sequence, batch cut from 32 to 1 (32 x 32768 tokens of activations and a
+# 120 GB cache do not fit one card).  Engine: 8 slots x 2048 rows, rank-32
+# KV sketches swapping every 64 rows, 8 prompts of 128 tokens, 96 new each.
+ARCH = "qwen3-0.6b"
+PREFILL_SEQ = 32768
+RAGGED_SEQ = 4000
+ENGINE_KW = dict(slots=8, max_seq=2048, kv_sketch_rank=32, kv_compress_ratio=2.0)
+ENGINE_REQUESTS, PROMPT_LEN, MAX_NEW = 8, 128, 96
+SERVE_TOL = 1e-1          # max |d logit| kernel vs plain engine (DESIGN §12)
+BF16_EXCESS = 16          # bf16 logits: ulps at the median |logit| (logits_agree)
+PEAK_F32_FLOP_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
+TIMING_REPS = 20          # for the sub-millisecond decode kernel
 
 
 class CheckFailed(Exception):
@@ -131,6 +163,335 @@ def lowp_ulp(torch, x, dtype):
     tiny = torch.finfo(dtype).tiny
     mag = torch.clamp(x.abs(), min=tiny)
     return torch.exp2(torch.floor(torch.log2(mag)) - mant)
+
+
+def fdec_inputs(torch, gen, *, b, s, h, kvh, hd, r, comp, wp, dtype):
+    """A factored-decode state honoring the cache contract (us rows >=
+    comp_len zero, dense rows < comp_len zero) with garbage past wp."""
+    dev = gen.device
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    comp_t = torch.tensor(comp, dtype=torch.int32, device=dev)
+    pre = torch.arange(s, device=dev)[None, :] < comp_t[:, None].long()
+    us_k = rn(b, kvh, s, r) * pre[:, None, :, None]
+    us_v = rn(b, kvh, s, r) * pre[:, None, :, None]
+    kd = rn(b, s, kvh, hd).masked_fill(pre[..., None, None], 0.0).to(dtype)
+    vd = rn(b, s, kvh, hd).masked_fill(pre[..., None, None], 0.0).to(dtype)
+    return (rn(b, 1, h, hd).to(dtype), kd, vd, us_k, rn(b, kvh, r, hd), us_v,
+            rn(b, kvh, r, hd), comp_t)
+
+
+def phase5_kernels(torch, gen, cfg) -> dict:
+    """Kernels 3-4 against their plain versions at the path's shapes."""
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import flash_attention as k3
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    errs = {}
+    for label, s, dt, tol in (("prefill", PREFILL_SEQ, torch.bfloat16, (2e-2, 3e-2)),
+                              ("ragged", RAGGED_SEQ, torch.bfloat16, (2e-2, 3e-2)),
+                              ("f32", 1000, torch.float32, (1e-4, 1e-4))):
+        q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=gen.device).to(dt)
+                   for n in (h, kvh, kvh))
+        got = k3.flash_attention(q, k, v, causal=True)
+        want = k3.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[kernels] flash_attention {label} (1, {s}, {h}|{kvh}, {hd}) "
+              f"{str(dt)[6:]} causal: max|kernel-plain| {err:.3e} "
+              f"(rtol {tol[0]}, atol {tol[1]})")
+        check(torch.allclose(got.float(), want.float(), rtol=tol[0], atol=tol[1]),
+              f"flash_attention {label} disagrees with plain")
+        errs[("flash", label)] = err
+        del q, k, v, got, want
+    s, r, b = ENGINE_KW["max_seq"], ENGINE_KW["kv_sketch_rank"], ENGINE_KW["slots"]
+    wp = min(1000, s // 2)                     # mid-cache, garbage past it
+    comp = ((0, wp + 1, wp * 5 // 8, 0, wp + 1, wp // 4, wp * 9 // 10, 1)
+            * b)[:b]                           # none / all / partial
+    block = k4.heuristic_decode_block(s)
+    # f32 at 1e-4: 1001-row sums in another order than the einsums' (the
+    # reference's 1e-5 holds at its test shapes: tests/test_torch_cuda.py)
+    for label, dt, tol in (("bf16", torch.bfloat16, 1e-2), ("f32", torch.float32, 1e-4)):
+        args = fdec_inputs(torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r,
+                           comp=comp, wp=wp, dtype=dt)
+        got = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5,
+                                           block_kv=block)
+        want = k4.factored_decode_plain(*args, wp, scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[kernels] factored_decode {label} ({b}, {s}, {kvh}, {hd}) r={r} "
+              f"write_pos={wp} comp_len={list(comp)} block_kv={block}: "
+              f"max|kernel-plain| {err:.3e} (tol {tol})")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"factored_decode {label} disagrees with plain")
+        errs[("fdec", label)] = err
+    # comp_len == 0 everywhere: NaN factors must change no bit
+    args = list(fdec_inputs(torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r,
+                            comp=(0,) * b, wp=wp, dtype=torch.bfloat16))
+    out = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5)
+    for i in (3, 4, 5, 6):
+        args[i] = torch.full_like(args[i], float("nan"))
+    out_nan = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5)
+    check(torch.equal(out, out_nan), "factored_decode read factors of comp_len == 0")
+    print("[kernels] factored_decode comp_len == 0 with NaN factors: bit-identical")
+    return errs
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place at magnitude x."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def bf16_agreement(torch, got, want) -> tuple[float, float]:
+    """Correlation of two sets of logits, and the worst excess of |got -
+    want| over two bf16 ulps at each logit's own magnitude, counted in bf16
+    ulps at the median |logit|."""
+    d = (got - want).abs()
+    own = lowp_ulp(torch, torch.maximum(got.abs(), want.abs()), torch.bfloat16)
+    excess = (d - 2 * own).max().item() / bf16_ulp(want.abs().median().item())
+    corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+    return corr, excess
+
+
+def logits_agree(torch, got, want, dtype: str, tol: float) -> tuple[bool, str]:
+    """The serve comparisons of kernel vs plain paths.  In f32 activations
+    (the algorithm) the reference's tolerance holds as it is.  In bf16
+    activations (the model's dtype) the logits are bf16 numbers: the
+    token's own tied-embedding logit reaches ~1000, where one ulp is 4-8,
+    and bf16 rounding of the hidden state differs between any two
+    summation orders over 28 layers, which moves every logit by a share of
+    the logits' spread.  There each logit must lie within two ulps at its
+    own magnitude plus ``BF16_EXCESS`` ulps at the median |logit| (the
+    spread's scale), and the correlation must exceed 0.9999: a wrong
+    attention output reaches every logit through W_o, the MLP and the
+    unembedding."""
+    diff = (got - want).abs().max().item()
+    peak = max(want.abs().max().item(), 1e-30)
+    corr, excess = bf16_agreement(torch, got, want)
+    if dtype == "float32":
+        ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+        rule = f"rtol=atol={tol}"
+    else:
+        ok = excess <= BF16_EXCESS and corr > 0.9999
+        rule = (f"excess over 2 own ulps {excess:.2f} ulp at the median "
+                f"|logit| <= {BF16_EXCESS}, corr > 0.9999")
+    return ok, (f"max|d| {diff:.3e} at |logit| max {peak:.1f}, correlation "
+                f"{corr:.7f} ({rule})")
+
+
+def phase6_prefill(torch, gen, cfg, weights, card) -> dict:
+    """make_prefill_step at full width with kernel 3 and with the plain
+    blockwise attention, then grow_cache + one decode step vs a full
+    forward over S + 1 — in bf16 activations (the main path, timed and
+    counted) and again in f32 activations (the reference's tolerances)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_SEQ + 1), generator=gen,
+                           device=gen.device)
+    prompt = tokens[:, :PREFILL_SEQ]
+    out = {}
+    for act in ("bfloat16", "float32"):
+        pcfg = cfg.with_(activation_dtype=act)
+        kcfg = pcfg.with_(use_flash_kernel=True)
+        params = weights[act]
+        torch.cuda.reset_peak_memory_stats()
+        k3.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, cache = launch.run_prefill(kcfg, params, prompt)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        launches = k3.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        logits_p, cache_p = launch.run_prefill(pcfg, params, prompt)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        del cache_p
+        ok, msg = logits_agree(torch, logits_k, logits_p, act, 5e-2)
+        print(f"[prefill] {ARCH} full width, {act} activations, (1, {PREFILL_SEQ}) "
+              f"tokens: kernel path {t_k * 1e3:.1f} ms ({PREFILL_SEQ / t_k:.0f} "
+              f"tok/s, first call), plain attention {t_p * 1e3:.1f} ms; flash "
+              f"launches {launches}; peak {peak:.2f} GiB; last-position logits "
+              f"kernel vs plain: {msg} [{card}]")
+        check(launches == cfg.n_layers, f"flash launches {launches} != {cfg.n_layers}")
+        check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
+        check(ok, f"prefill logits ({act}): kernel path disagrees with the plain path")
+        grown = cache_mod.grow_cache(cache, 1)
+        del cache
+        got, _ = R.make_serve_step(kcfg)(params, {
+            "tokens": tokens[:, PREFILL_SEQ:], "cache": grown,
+            "write_pos": PREFILL_SEQ})
+        del grown
+        want = R._final_logits(kcfg, T.forward(kcfg, params, tokens,
+                                               last_only=True).logits[:, -1])
+        ok, msg = logits_agree(torch, got, want, act, 0.15)
+        corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+        print(f"[prefill] {act}: grow_cache + one decode step at write_pos "
+              f"{PREFILL_SEQ} vs a full forward over {PREFILL_SEQ + 1}: {msg}")
+        check(ok and corr > 0.99,
+              f"prefill + decode ({act}) disagrees with the full forward")
+        out[act] = {"launches": launches, "err": (logits_k - logits_p).abs().max().item(),
+                    "ms_kernel": t_k * 1e3, "ms_plain": t_p * 1e3}
+    return out
+
+
+def phase7_engine(torch, cfg, weights, card) -> dict:
+    """Two engines in teacher-forced lockstep (kernel 4 vs the plain
+    oracle), in bf16 activations (the main path: launches counted; every
+    step held to ``logits_agree``'s bf16 rule) and in f32 activations (the
+    reference's 1e-1); then the bf16 kernel engine alone through
+    ``launch.run_engine``, timed, with one traced decode step."""
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.engine import Engine
+    dev = next(iter(weights["bfloat16"].values())).device
+    prompts = launch.make_prompts(ENGINE_REQUESTS, PROMPT_LEN, cfg.vocab, seed=1)
+    out = {}
+    for act in ("bfloat16", "float32"):
+        pcfg = cfg.with_(activation_dtype=act)
+        plain = Engine(pcfg, weights[act], device=dev, **ENGINE_KW)
+        kern = Engine(pcfg.with_(use_flash_kernel=True), weights[act], device=dev,
+                      **ENGINE_KW)
+        compare = None if act == "float32" else (
+            lambda got, want: bf16_agreement(torch, got, want))
+        k4.launches = 0
+        t0 = time.perf_counter()
+        res = launch.lockstep([plain, kern], prompts, max_new=MAX_NEW,
+                              compare=compare)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k4.launches
+        hist_p, hist_k = res["comp_len"]
+        swaps = [sum(1 for a, b in zip([[0] * kern.slots] + hist_k, hist_k)
+                     if b[s] > a[s]) for s in range(kern.slots)]
+        diffs, peaks = res["diffs"], res["peaks"]
+        if act == "float32":
+            ok = max(diffs) < SERVE_TOL
+            rule = f"< {SERVE_TOL}"
+        else:
+            corr = min(c for c, _ in res["compared"])
+            excess = max(e for _, e in res["compared"])
+            ok = corr > 0.9999 and excess <= BF16_EXCESS
+            rule = (f"worst excess over 2 own ulps {excess:.2f} ulp at the "
+                    f"median |logit| <= {BF16_EXCESS}, least correlation of a "
+                    f"step {corr:.7f} > 0.9999")
+        print(f"[engine] {act} lockstep, {res['steps']} decode steps in {wall:.1f} s: "
+              f"max |d logit| kernel vs plain {max(diffs):.3e} ({rule}; "
+              f"|logit| max {max(peaks):.1f}; mean of step maxima "
+              f"{sum(diffs) / len(diffs):.3e}); fdec launches {launches} = "
+              f"{res['steps']} x {cfg.n_layers}: "
+              f"{launches == res['steps'] * cfg.n_layers}; swaps per slot {swaps}; "
+              f"final comp_len {hist_k[-1]} [{card}]")
+        check(launches == res["steps"] * cfg.n_layers,
+              f"fdec launches {launches} != {res['steps']} x {cfg.n_layers}")
+        check(hist_p == hist_k, "comp_len histories differ between the engines")
+        check(min(swaps) >= 2, f"a slot compressed fewer than twice: {swaps}")
+        check(ok, f"engines diverge ({act}): {rule}")
+        out[act] = {"launches": launches, "max_diff": max(diffs), "engine": kern}
+        del plain
+
+    # One swap traced, on the f32 lockstep's kernel engine (its cache is
+    # bf16 and its factors f32, as in bf16; the bf16 engine's final state
+    # stays as it is for phase 8): slots 0 and 1 still hold a 31-row tail.
+    eng = out["float32"]["engine"]
+    slots = iter(range(eng.slots))
+    wall_c, busy_c, top_c = device_breakdown(
+        torch, lambda: eng.compress_slot(next(slots)))
+    heads = cfg.n_scan_periods * cfg.n_kv_heads
+    print(f"[profile] one compress_slot (k and v, {heads} heads each: Q of a "
+          f"({ENGINE_KW['max_seq']}, {eng._kv_min_rows}) sketch, B = Q^T K, SVD, "
+          f"rank {ENGINE_KW['kv_sketch_rank']}): wall {wall_c:.3f} ms (traced), "
+          f"device kernels {busy_c:.3f} ms (busy {100 * busy_c / wall_c:.0f}%); "
+          f"top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c) + f" [{card}]")
+    del eng, out["float32"]["engine"]
+
+    traced = []
+
+    def trace_step(eng, i):                    # two more decode steps, traced
+        if i == 10:
+            traced.extend(device_breakdown(torch, eng.step))
+    torch.cuda.reset_peak_memory_stats()
+    run = launch.run_engine(cfg.with_(use_flash_kernel=True), weights["bfloat16"],
+                            prompts, max_new=MAX_NEW, device=dev,
+                            on_step=trace_step, **ENGINE_KW)
+    eng, step_ms, seconds = run["engine"], run["step_ms"], run["seconds"]
+    tokens = run["tokens"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    slow = [(i, round(t)) for i, t in enumerate(step_ms) if i and t > 3 * decode_ms]
+    wall_t, busy, top = traced
+    rep = eng.kv_bytes_report()
+    print(f"[engine] bf16 kernel engine alone: {tokens} tokens in {seconds:.2f} s "
+          f"({tokens / seconds:.1f} tok/s; the first step, admitting "
+          f"{ENGINE_REQUESTS} x {PROMPT_LEN}-token prompts, {step_ms[0]:.0f} ms); "
+          f"decode step {decode_ms:.2f} ms (median; steps over 3x the median, "
+          f"the swaps: {slow}); peak memory {peak:.2f} GiB; "
+          f"swappable KV {rep['compressed_bytes'] / 2**20:.1f} MiB vs dense "
+          f"{rep['dense_bytes'] / 2**20:.1f} MiB [{card}]")
+    print(f"[profile] one decode step: wall {wall_t:.3f} ms (traced), device "
+          f"kernels {busy:.3f} ms (busy {100 * busy / wall_t:.0f}%); top: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" [{card}]")
+    return out
+
+
+def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
+    """Kernel, plain version, bound and library call for kernels 3-4 at the
+    path's shapes: flash at the prefill shape, fdec on layer 0 of the kernel
+    engine's final state (its cache, factors and comp_len)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import flash_attention as k3
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = PREFILL_SEQ
+    q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=gen.device)
+               .to(torch.bfloat16) for n in (h, kvh, kvh))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t_k = median_ms(torch, lambda: k3.flash_attention(q, k, v, causal=True))
+    t_p = median_ms(torch, lambda: k3.flash_attention_plain(q, k, v, causal=True))
+    t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    t_ops = k3.causal_flops(1, s, h, hd) / PEAK_TC_FLOP_PER_S
+    t_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) / PEAK_BYTES_PER_S
+    flash = (t_k, t_p, t_l, max(t_ops, t_bytes) * 1e3,
+             "operations" if t_ops >= t_bytes else "bytes")
+    print(f"[time] flash_attention (1, {s}, {h}|{kvh}, {hd}) bf16 causal: kernel "
+          f"{t_k:.3f} ms, plain {t_p:.3f} ms, scaled_dot_product_attention "
+          f"{t_l:.3f} ms, bound {flash[3]:.3f} ms ({flash[4]}); kernel/bound "
+          f"{t_k / flash[3]:.2f}x, {k3.causal_flops(1, s, h, hd) / t_k / 1e9:.1f} "
+          f"TFLOP/s [{card}]")
+    del q, k, v, qt, kt, vt
+
+    eng = kern_engine
+    wp = int(max(eng.pos)) - 1                     # the last decode step's clock
+    kc, vc = eng.cache["scan"][0]["k"][0], eng.cache["scan"][0]["v"][0]
+    f = {n: w[0] for n, w in eng.kv_fact["scan"][0].items()}
+    comp = torch.as_tensor(eng._kv_comp_len, device=kc.device)
+    qd = torch.randn((eng.slots, 1, h, hd), generator=gen,
+                     device=gen.device).to(torch.bfloat16)
+    args = (qd, kc, vc, f["k_us"], f["k_vt"], f["v_us"], f["v_vt"], comp)
+    block = k4.heuristic_decode_block(kc.shape[1])
+    t_k = median_ms(torch, lambda: k4.factored_decode_attention(
+        *args, wp, scale=hd ** -0.5, block_kv=block), reps=TIMING_REPS)
+    t_p = median_ms(torch, lambda: k4.factored_decode_plain(
+        *args, wp, scale=hd ** -0.5), reps=TIMING_REPS)
+    nbytes = k4.bytes_needed(qd, kc, f["k_us"], comp, wp)
+    nops = k4.operations_needed(qd, kc, f["k_us"], comp, wp)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOP_PER_S
+    fdec = (t_k, t_p, None, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+    print(f"[time] factored_decode layer 0 of the engine's final state "
+          f"({eng.slots}, {kc.shape[1]}, {kvh}, {hd}) r={f['k_us'].shape[-1]} "
+          f"write_pos={wp} comp_len={[int(c) for c in eng._kv_comp_len]}: kernel "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {fdec[3]:.5f} ms ({fdec[4]}: "
+          f"{nbytes} B, {nops} f32 ops); kernel/bound {t_k / fdec[3]:.1f}x [{card}]")
+    print("[time] factored_decode library_ms: null — no single PyTorch call "
+          "computes attention over a rank-r factored prefix plus a dense tail "
+          "under one softmax (scaled_dot_product_attention needs K and V "
+          "materialized)")
+    return {"flash_attention": flash, "factored_decode": fdec}
 
 
 def main() -> int:
@@ -369,6 +730,26 @@ def main() -> int:
         per_call[name] = counter.launches - before
     print(f"[launches] per call: {per_call}")
 
+    # -- 5.-8. the serving slice at qwen3-0.6b's full width ----------------
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    cfg = R.get_arch(ARCH)
+    serve_gen = torch.Generator(device=dev).manual_seed(4321)
+    errs5 = phase5_kernels(torch, serve_gen, cfg)
+    t0 = time.perf_counter()
+    masters = launch.init_weights(cfg, seed=0, device=dev)
+    weights = {"float32": masters,
+               "bfloat16": T.cast_params_for_compute(cfg, masters)}
+    torch.cuda.synchronize()
+    print(f"[serve] {ARCH}: {T.param_count(cfg) / 1e6:.1f} M parameters at the "
+          f"published widths ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}), random f32 masters from seed 0, cast to bf16 once; "
+          f"{time.perf_counter() - t0:.1f} s")
+    prefill = phase6_prefill(torch, serve_gen, cfg, weights, card)["bfloat16"]
+    engine = phase7_engine(torch, cfg, weights, card)["bfloat16"]
+    times8 = phase8_timings(torch, serve_gen, cfg, engine["engine"], card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -382,6 +763,17 @@ def main() -> int:
                         "max_abs_err": results[errkey], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                         "library_ms": t_l})
+    for name, replaces, launches, err in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:38",
+             prefill["launches"], errs5[("flash", "prefill")]),
+            ("factored_decode", "src/repro/kernels/factored_decode.py:50",
+             engine["launches"], errs5[("fdec", "bf16")])):
+        t_k, t_p, t_l, t_b, by = times8[name]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": t_b, "bound_by": by, "library_ms": t_l})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

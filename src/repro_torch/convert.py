@@ -1,8 +1,9 @@
-"""Carry the reference's state across: keys and arrays.
+"""Carry the reference's state across: keys, arrays and model weights.
 
-This system has no weights.  What crosses from the JAX package is its PRNG
-key (as the (1, 2) uint32 key words its fused kernel hashes) and its arrays
-(inputs, a materialized Omega, results) as numpy arrays.
+What crosses from the JAX package is its PRNG key (as the (1, 2) uint32 key
+words its fused kernel hashes), its arrays (inputs, a materialized Omega,
+results) as numpy arrays, and the transformer's flat parameter dict
+(``params_from_reference``).
 """
 
 from __future__ import annotations
@@ -45,3 +46,25 @@ def from_reference(x) -> torch.Tensor:
         int_dtype, torch_dtype = view
         return torch.from_numpy(x.view(int_dtype).copy()).view(torch_dtype)
     return torch.from_numpy(x.copy())
+
+
+def params_from_reference(params: dict, cfg, *, device=None) -> dict:
+    """The port's parameters from the reference's flat dict
+    ``{"layers/p0/attn/wq": (periods, D, H, hd), ...}`` of numpy arrays.
+    The port keeps the reference's names, stacked scan leaves and layouts,
+    so each leaf crosses as it is; names and shapes are checked against the
+    port's schema."""
+    from repro_torch.models.transformer import schema
+    defs = schema(cfg)
+    if set(params) != set(defs):
+        raise ValueError(f"parameter names differ from the schema: missing "
+                         f"{sorted(set(defs) - set(params))}, extra "
+                         f"{sorted(set(params) - set(defs))}")
+    out = {}
+    for name, arr in params.items():
+        t = from_reference(arr)
+        if tuple(t.shape) != defs[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != schema "
+                             f"{defs[name].shape}")
+        out[name] = t if device is None else t.to(device)
+    return out

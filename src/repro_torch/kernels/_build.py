@@ -21,8 +21,11 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 
 # One shared object per kernel module.  No --use_fast_math: the fused
-# kernel's Gaussian needs accurate logf/cosf/sqrtf.
-SOURCES = {"shgemm": "shgemm.cu", "shgemm_fused": "shgemm_fused.cu"}
+# kernel's Gaussian needs accurate logf/cosf/sqrtf, the attention kernels
+# accurate expf/tanhf.
+SOURCES = {"shgemm": "shgemm.cu", "shgemm_fused": "shgemm_fused.cu",
+           "flash_attention": "flash_attention.cu",
+           "factored_decode": "factored_decode.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,10 @@
 ``shgemm(a, b)`` takes arbitrary shapes: it pads to block multiples, runs
 kernel 1 (``kernels/shgemm.py``) and slices the padding off.
 ``shgemm_fused(a, key, n)`` is the zero-device-memory-Omega variant
-(``kernels/shgemm_fused.py``).  Both run on the card unless the caller
+(``kernels/shgemm_fused.py``).  ``flash_attention`` (kernel 3) and
+``factored_decode_attention`` (kernel 4) are the attention entries the model
+calls under ``cfg.use_flash_kernel``; both kernels mask their ragged edges
+themselves, so nothing here pads them.  Both run on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain versions run.
 
 Blocks come from ``heuristic_blocks`` (the port's copy of the reference's
@@ -19,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import on_device, resolve_device
+from repro_torch.kernels import factored_decode as _fd
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import shgemm as _k
 from repro_torch.kernels import shgemm_fused as _kf
 
@@ -130,3 +135,25 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
         dist=dist, s=_kf._resolve_s(dist, s, k), store_dtype=omega_dtype,
         lowp_dtype=compute_dtype, offsets=(row_offset, col_offset))
     return c[:m, :n]
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal (or full) GQA attention through kernel 3; q (B, S, H, hd),
+    k/v (B, S, KV, hd), any S.  The reference pads S to its block and sends
+    ragged non-causal shapes to the oracle; this kernel masks the ragged
+    edge itself, so neither is needed."""
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
+                              write_pos: int, *, scale: float,
+                              cap: float = 0.0,
+                              block_kv: int | None = None) -> torch.Tensor:
+    """Factored-prefix decode attention through kernel 4, same signature and
+    semantics as the oracle ``models.layers.factored_decode_attention``.
+    ``block_kv`` comes from ``heuristic_decode_block`` unless given (the
+    autotuner is not ported)."""
+    return _fd.factored_decode_attention(
+        q, k, v, k_us, k_vt, v_us, v_vt, comp_len, write_pos, scale=scale,
+        cap=cap, block_kv=block_kv)

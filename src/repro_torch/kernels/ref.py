@@ -3,7 +3,8 @@
 bf16 x bf16 and fp16 x fp16 products are exact in f32, so every
 low-precision term is upcast to f32 before ``torch.matmul``: the reference's
 ``jnp.dot(..., preferred_element_type=f32)``.  A bf16-output matmul would
-round each term and lose the correction.
+round each term and lose the correction.  ``flash_attention_ref`` is the
+oracle of the causal flash-attention kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +38,26 @@ def shgemm_ref(a_f32: torch.Tensor, b_lowp: torch.Tensor,
     if fmt == "fp16":
         return main + corr * FP16_INV_SCALE
     return main + corr
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Plain GQA attention oracle: q (B, S, H, hd), k/v (B, S, KV, hd),
+    f32 scores and softmax, the (S, S) matrix materialized."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.reshape(b, s, kv, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def sgemm_f64_oracle(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

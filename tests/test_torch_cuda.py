@@ -1,18 +1,27 @@
-"""The two hand-written kernels against their plain PyTorch versions on the
-card.  A CUDA kernel has no CPU mode, so every test here carries the
-``cuda`` marker and skips without a card.  The file imports no JAX (the
+"""The four hand-written kernels against their plain PyTorch versions on the
+card, and a smoke-size engine lockstep through kernel 4.  A CUDA kernel has
+no CPU mode, so every test here carries the ``cuda`` marker and skips
+without a card.  The file imports no JAX (the
 machine with the card has none); run it there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
+from repro_torch.configs.base import smoke_config
 from repro_torch.convert import key_from_seed
+from repro_torch.kernels import factored_decode as k4
+from repro_torch.kernels import flash_attention as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels import shgemm as k1
 from repro_torch.kernels import shgemm_fused as k2
+from repro_torch.launch import serve as launch
+from repro_torch.models import registry as R
+from repro_torch.serve.engine import Engine
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +85,146 @@ def test_kernel_rejects_misaligned_operand(gen):
     b = torch.ones((64, 32), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         k1.shgemm_pallas(a, b, bm=32, bn=32, bk=32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3 (flash attention) and kernel 4 (factored decode)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(gen, b, s, h, kvh, hd, dtype):
+    mk = lambda n: torch.randn((b, s, n, hd), generator=gen,  # noqa: E731
+                               device="cuda").to(dtype)
+    return mk(h), mk(kvh), mk(kvh)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd", [
+    (2, 256, 8, 4, 64), (1, 512, 4, 1, 128), (2, 128, 4, 4, 32),
+    (2, 200, 4, 2, 64), (2, 32, 4, 2, 16), (1, 300, 8, 1, 128)], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_bf16(gen, b, s, h, kvh, hd, causal):
+    """bf16 at the reference's tolerance (P is rounded to bf16 for P.V);
+    S = 200 and 300 exercise the ragged edge the kernel masks itself."""
+    q, k, v = _qkv(gen, b, s, h, kvh, hd, torch.bfloat16)
+    before = k3.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert k3.launches == before + 1
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("s,causal", [(128, True), (200, True), (96, False)])
+def test_flash_kernel_matches_plain_f32(gen, s, causal):
+    """f32 inputs run the hi/lo split products: f32 accuracy."""
+    q, k, v = _qkv(gen, 1, s, 4, 2, 64, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _fdec_inputs(gen, b=2, s=32, h=4, kvh=2, hd=16, r=5, comp=(12, 0), wp=20,
+                 dtype=torch.float32, garbage_past_wp=False):
+    """Factored-decode state honoring the cache contract: us rows >=
+    comp_len zero, dense rows < comp_len zero (swapped out)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    comp_t = torch.tensor(comp, dtype=torch.int32, device="cuda")
+    idx = torch.arange(s, device="cuda")
+    pre = idx[None, :] < comp_t[:, None].long()                # (B, S)
+    us_k = rn(b, kvh, s, r) * pre[:, None, :, None]
+    us_v = rn(b, kvh, s, r) * pre[:, None, :, None]
+    vt_k, vt_v = rn(b, kvh, r, hd), rn(b, kvh, r, hd)
+    kd = rn(b, s, kvh, hd).masked_fill(pre[..., None, None], 0.0)
+    vd = rn(b, s, kvh, hd).masked_fill(pre[..., None, None], 0.0)
+    if not garbage_past_wp:
+        dead = (idx > wp)[None, :, None, None]
+        kd, vd = kd.masked_fill(dead, 0.0), vd.masked_fill(dead, 0.0)
+    q = rn(b, 1, h, hd)
+    return (q.to(dtype), kd.to(dtype), vd.to(dtype), us_k, vt_k, us_v, vt_v,
+            comp_t)
+
+
+def _fdec_both(args, wp, *, cap=0.0, block_kv=8, hd=16):
+    scale = hd ** -0.5
+    before = k4.launches
+    got = ops.factored_decode_attention(*args, wp, scale=scale, cap=cap,
+                                        block_kv=block_kv)
+    assert k4.launches == before + 1
+    want = k4.factored_decode_plain(*args, wp, scale=scale, cap=cap)
+    return got, want
+
+
+@pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("comp", [(0, 0), (21, 21), (12, 0), (8, 21), (12, 5)])
+def test_fdec_kernel_matches_plain(gen, h, kvh, cap, comp):
+    args = _fdec_inputs(gen, h=h, kvh=kvh, comp=comp, wp=20)
+    got, want = _fdec_both(args, 20, cap=cap)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("block_kv", [8, 16, 32, 64])
+@pytest.mark.parametrize("wp", [7, 8, 25, 39])
+def test_fdec_kernel_blocks_and_write_pos(gen, block_kv, wp):
+    args = _fdec_inputs(gen, s=40, comp=(min(13, wp + 1), 0), wp=wp)
+    got, want = _fdec_both(args, wp, block_kv=block_kv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_fdec_kernel_skips_rows_past_write_pos_and_unused_factors(gen):
+    """Rows past write_pos are never read (garbage there changes no bit),
+    and a batch with comp_len == 0 never reads its factors (NaN there
+    changes no bit)."""
+    wp = 17
+    g2 = torch.Generator(device="cuda")
+    clean = _fdec_inputs(g2.manual_seed(5), comp=(9, 0), wp=wp)
+    dirty = _fdec_inputs(g2.manual_seed(5), comp=(9, 0), wp=wp,
+                         garbage_past_wp=True)
+    out_c, _ = _fdec_both(clean, wp)
+    out_d, want_d = _fdec_both(dirty, wp)
+    torch.testing.assert_close(out_d, want_d, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out_c, out_d)
+    args = list(_fdec_inputs(gen, comp=(0, 0), wp=20))
+    out, _ = _fdec_both(tuple(args), 20)
+    for i in (3, 4, 5, 6):
+        args[i] = torch.full_like(args[i], float("nan"))
+    out_p, _ = _fdec_both(tuple(args), 20)
+    assert torch.equal(out, out_p)
+
+
+def test_fdec_kernel_engine_shape_bf16(gen):
+    """The engine's shape: 8 slots x 2048 rows x 8 kv heads x 128, r = 32,
+    bf16 cache, comp_len mixed (0 / all / partial)."""
+    comp = (0, 201, 128, 192, 0, 64, 150, 201)
+    args = _fdec_inputs(gen, b=8, s=2048, h=16, kvh=8, hd=128, r=32,
+                        comp=comp, wp=200, dtype=torch.bfloat16,
+                        garbage_past_wp=True)
+    got, want = _fdec_both(args, 200, block_kv=256, hd=128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_engine_kernel_path_matches_plain_path_smoke(act):
+    """Smoke qwen3: the engine decoding through kernel 4 stays in lockstep
+    with the one decoding through the plain oracle, with the same
+    compression history; kernel 4 runs once per layer per decode step.
+    f32 activations at the reference's 1e-1; bf16 activations within two
+    bf16 ulps of the largest logit (two summation orders round the bf16
+    hidden state differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = smoke_config(R.get_arch("qwen3-0.6b")).with_(activation_dtype=act)
+    params = launch.init_weights(cfg, seed=0, device="cuda")
+    kw = dict(slots=2, max_seq=48, kv_sketch_rank=4, kv_compress_ratio=2.0,
+              device="cuda")
+    plain = Engine(cfg, params, **kw)
+    kern = Engine(cfg.with_(use_flash_kernel=True), params, **kw)
+    before = k4.launches
+    res = launch.lockstep([plain, kern], [[5, 7, 11, 2], [3, 9, 1, 4]],
+                          max_new=16)
+    bound = 1e-1 if act == "float32" else 2 * 2.0 ** (
+        math.floor(math.log2(max(res["peaks"]))) - 7)
+    assert res["diffs"] and max(res["diffs"]) <= bound, (res["diffs"], bound)
+    assert res["comp_len"][0] == res["comp_len"][1]
+    assert (kern._kv_comp_len > 0).all()
+    assert k4.launches - before == res["steps"] * cfg.n_layers

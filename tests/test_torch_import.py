@@ -13,11 +13,17 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import main_path
+from repro_torch import main_path, stream
 from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
 from repro_torch.core import hosvd, lstsq, projection as proj, rsvd
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, shgemm_fused as kf
+from repro_torch.configs.base import smoke_config
+from repro_torch.launch import serve as launch
+from repro_torch.models import cache as cache_mod, registry as R
+from repro_torch.serve import kv_compress
+from repro_torch.serve.engine import Engine
+from repro_torch.serve.model_step import ModelStep
 
 torch.set_num_threads(1)  # small shapes: leave the cores to the other test workers
 
@@ -44,7 +50,23 @@ def test_import_pulls_in_no_jax_or_reference():
                          text=True, cwd=REPO, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 34  # every module was imported
+
+
+@pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch"])
+def test_serving_subpackages_import_without_jax(sub):
+    """Each subpackage of the serving slice, imported on its own in a fresh
+    interpreter, leaves 'jax' out of sys.modules."""
+    code = (f"import importlib, pkgutil, sys\n"
+            f"import repro_torch.{sub} as p\n"
+            f"for m in pkgutil.walk_packages(p.__path__, 'repro_torch.{sub}.'):\n"
+            f"    importlib.import_module(m.name)\n"
+            f"assert 'jax' not in sys.modules\n"
+            f"assert not any(n.split('.')[0] == 'repro' for n in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -73,6 +95,8 @@ _A = torch.ones((4, 3))
 _KEY = (0, 1)
 _SMALL_RSVD = dataclasses.replace(PAPER_RSVD, n=16, rank=2)
 _SMALL_HOSVD = dataclasses.replace(PAPER_HOSVD, dims=(4, 4, 4), ranks=(2, 2, 2))
+_SMOKE = smoke_config(R.get_arch("qwen3-0.6b"))
+_SMOKE_PARAMS = launch.init_weights(_SMOKE, device="cpu")
 ENTRY_POINTS = {
     "resolve_device": lambda **d: resolve_device(**d),
     "ops.shgemm": lambda **d: ops.shgemm(_A, torch.ones((3, 2)), **d),
@@ -91,6 +115,15 @@ ENTRY_POINTS = {
     "rp_sthosvd": lambda **d: hosvd.rp_sthosvd(_KEY, torch.ones((4, 4, 4)), (2, 2, 2), **d),
     "lstsq": lambda **d: lstsq.sketch_precond_lstsq(_KEY, torch.ones((8, 2)), torch.ones(8), **d),
     "main_path": lambda **d: main_path.run_main_path(_SMALL_RSVD, _SMALL_HOSVD, **d),
+    "init_weights": lambda **d: launch.init_weights(_SMOKE, **d),
+    "build_cache": lambda **d: cache_mod.build_cache(_SMOKE, 1, 4, **d),
+    "build_kv_factors": lambda **d: cache_mod.build_kv_factors(_SMOKE, 1, 4, 2, **d),
+    "stream.init": lambda **d: stream.init(_KEY, 4, 2, max_rows=4, **d),
+    "kv_sketch_init": lambda **d: kv_compress.kv_sketch_init(_KEY, 2, 16, 8, 4, **d),
+    "ModelStep": lambda **d: ModelStep(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
+    "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
+    "run_engine": lambda **d: launch.run_engine(
+        _SMOKE, _SMOKE_PARAMS, [[1, 2]], max_new=2, slots=1, max_seq=8, **d),
 }
 
 

@@ -1,0 +1,228 @@
+"""The port's serving engine (repro_torch.serve) against the reference's on
+smoke qwen3 with the same weights, teacher-forced in lockstep.
+
+The lockstep runs twice.  With f32 activations, where the point is the
+algorithm, logits agree within the reference's serve tolerance (max
+|d logit| < 1e-1, DESIGN.md §12).  With the model's bf16 activations the two
+frameworks round at different places; there logits agree within one bf16
+unit in the last place at the largest logit's magnitude.  Compression runs
+at rank == head_dim, where every swap is exact whatever Omega, so no Omega
+is patched; comp_len histories must be equal.  Also the reference's engine
+contracts: staggered admission never compresses, the compress_slot error
+paths, strictly smaller compressed bytes, and the bounded queue."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro.configs.base import smoke_config as ref_smoke
+from repro.models import registry as RR
+from repro.models import transformer as RT
+from repro.serve.engine import Engine as RefEngine, Request as RefRequest
+from repro.serve.model_step import ModelStep as RefModelStep
+from repro_torch.configs.base import smoke_config
+from repro_torch.convert import params_from_reference
+from repro_torch.launch import serve as launch
+from repro_torch.models import registry as R
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.model_step import ModelStep
+from repro_torch.serve.scheduler import QueueFullError
+
+jax.config.update("jax_platform_name", "cpu")
+torch.set_num_threads(1)
+
+PROMPTS = [[5, 7, 11, 2], [3, 9, 1, 4]]
+
+
+def _pair(act="bfloat16"):
+    ref_cfg = ref_smoke(RR.get_arch("qwen3-0.6b")).with_(activation_dtype=act)
+    cfg = smoke_config(R.get_arch("qwen3-0.6b")).with_(activation_dtype=act)
+    ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
+                                   cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+def _lockstep(ref, port, max_new=30, steps=64):
+    for e, Rq in ((ref, RefRequest), (port, Request)):
+        for i, p in enumerate(PROMPTS):
+            e.submit(Rq(rid=i, prompt=list(p), max_new=max_new))
+    forced = np.random.default_rng(0).integers(0, ref.cfg.vocab, size=steps + 1)
+    diffs, peaks, step = [], [], 0
+    while (ref.queue or any(ref.active)) and step < steps:
+        assert ref.step() == port.step()
+        live = [s for s in range(ref.slots) if ref.active[s] is not None]
+        want = np.asarray(ref.last_logits)[live]
+        got = port.last_logits.numpy()[live]
+        if live:
+            diffs.append(float(np.abs(got - want).max()))
+            peaks.append(float(np.abs(want).max()))
+        assert list(ref._kv_comp_len) == list(port._kv_comp_len), step
+        assert list(ref.pos) == list(port.pos)
+        for e in (ref, port):
+            for s in range(e.slots):
+                if e.active[s] is not None and e.active[s].out:
+                    e.active[s].out[-1] = int(forced[step])
+        step += 1
+    assert diffs, "engines never decoded in lockstep"
+    return diffs, peaks
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("compress", [False, True], ids=["dense", "compressed"])
+def test_engine_matches_reference(act, compress):
+    ref_cfg, cfg, ref_params, params = _pair(act)
+    kw = dict(slots=2, max_seq=64)
+    if compress:
+        kw.update(kv_sketch_rank=cfg.head_dim, kv_compress_ratio=1.0)
+    ref = RefEngine(ref_cfg, ref_params, **kw)
+    port = Engine(cfg, params, device="cpu", **kw)
+    diffs, peaks = _lockstep(ref, port)
+    if act == "float32":
+        assert max(diffs) < 1e-1, max(diffs)
+    else:
+        assert max(diffs) <= _bf16_ulp(max(peaks)), (max(diffs), max(peaks))
+    if compress:
+        assert (port._kv_comp_len > port._kv_threshold).all(), port._kv_comp_len
+        assert port.kv_bytes_report() == ref.kv_bytes_report()
+
+
+def test_model_step_prefill_rows_and_masked_decode_match_reference():
+    """Chunked prefill into one slot, then a masked decode step: logits
+    match, and the unmasked slot's cache row at the clock is left as it
+    was."""
+    ref_cfg, cfg, ref_params, params = _pair("float32")
+    ref = RefModelStep(ref_cfg, ref_params, slots=2, max_seq=32)
+    port = ModelStep(cfg, params, slots=2, max_seq=32, device="cpu")
+    for e in (ref, port):
+        e.prefill_rows(0, [3, 4, 5], 0)
+    want0 = np.asarray(ref.prefill_rows(1, [6, 7], 0))
+    got0 = port.prefill_rows(1, [6, 7], 0).numpy()
+    np.testing.assert_allclose(got0, want0, rtol=1e-4, atol=1e-4)
+    before = port.cache["scan"][0]["k"][:, 1, 3].clone()
+    tokens = np.array([[8], [9]], np.int32)
+    want = np.asarray(ref.decode_logits(tokens, 3, slot_mask=np.array([True, False])))
+    got = port.decode_logits(tokens, 3, slot_mask=np.array([True, False])).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(port.cache["scan"][0]["k"][:, 1, 3], before)
+    np.testing.assert_allclose(port.cache["scan"][0]["k"].float().numpy(),
+                               np.asarray(ref.cache["scan"][0]["k"], np.float32),
+                               rtol=1e-2, atol=1e-2)
+    assert list(port.pos) == list(ref.pos) == [3, 2]
+
+
+def _port_engine(**kw):
+    cfg = smoke_config(R.get_arch("qwen3-0.6b"))
+    return Engine(cfg, launch.init_weights(cfg, seed=0, device="cpu"),
+                  device="cpu", **kw)
+
+
+def test_staggered_admission_never_compresses():
+    eng = _port_engine(slots=2, max_seq=64, kv_sketch_rank=4, kv_compress_ratio=2.0)
+    eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=40))
+    eng.submit(Request(rid=1, prompt=[4, 5, 6], max_new=4))
+    eng.submit(Request(rid=2, prompt=[7, 8, 9], max_new=20))  # queued
+    eng.run()
+    lagging = [s for s in range(2) if not eng._kv_contig[s]]
+    synced = [s for s in range(2) if eng._kv_contig[s]]
+    assert lagging and synced, (eng._kv_contig, eng._kv_comp_len)
+    for s in lagging:
+        assert eng._kv_comp_len[s] == 0, "gapped slot must not compress"
+        with pytest.raises(ValueError, match="admitted mid-stream"):
+            eng.compress_slot(s)
+    for s in synced:
+        assert eng._kv_comp_len[s] > 0
+
+
+def test_compress_slot_error_paths():
+    plain = _port_engine(slots=1, max_seq=32)
+    with pytest.raises(ValueError, match="no sketch state"):
+        plain.kv_factors(0)
+    eng = _port_engine(slots=2, max_seq=32, kv_sketch_rank=4, kv_compress_ratio=2.0)
+    with pytest.raises(ValueError, match="never|no sketch state"):
+        eng.kv_factors(1)
+    sk_only = _port_engine(slots=1, max_seq=32, kv_sketch_rank=4)
+    with pytest.raises(ValueError, match="without kv_compress_ratio"):
+        sk_only.compress_slot(0)
+    eng.submit(Request(rid=0, prompt=[2, 3, 4], max_new=12))
+    eng.run()
+    assert eng._kv_comp_len[0] > 0
+    if eng.pos[0] > eng._kv_comp_len[0]:
+        eng.compress_slot(0)                 # legit: compress the last tail
+    with pytest.raises(ValueError, match="already fully factored"):
+        eng.compress_slot(0)
+    with pytest.raises(ValueError, match="requires kv_sketch_rank"):
+        _port_engine(slots=1, max_seq=32, kv_compress_ratio=2.0)
+    with pytest.raises(ValueError, match=">= 1"):
+        _port_engine(slots=1, max_seq=32, kv_sketch_rank=4, kv_compress_ratio=0.5)
+    short = _port_engine(slots=1, max_seq=32, kv_sketch_rank=4, kv_compress_ratio=8.0)
+    short.submit(Request(rid=0, prompt=[1, 2], max_new=2))
+    short.step()
+    with pytest.raises(ValueError, match="sketch width"):
+        short.compress_slot(0)
+
+
+def test_compressed_slot_bytes_strictly_drop():
+    eng = _port_engine(slots=2, max_seq=64, kv_sketch_rank=4, kv_compress_ratio=2.0)
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=[1 + i, 2, 3], max_new=24))
+    eng.run()
+    rep = eng.kv_bytes_report()
+    assert all(r["comp_len"] > 0 for r in rep["slots"])
+    for r in rep["slots"]:
+        assert r["compressed_bytes"] < r["dense_bytes"], r
+
+
+def test_bounded_queue():
+    eng = _port_engine(slots=1, max_seq=32, max_queue=2)
+    eng.submit(Request(rid=0, prompt=[1], max_new=2))
+    eng.submit(Request(rid=1, prompt=[1], max_new=2))
+    with pytest.raises(QueueFullError, match="queue depth 2"):
+        eng.submit(Request(rid=2, prompt=[1], max_new=2))
+    with pytest.raises(ValueError, match="max_queue"):
+        _port_engine(slots=1, max_seq=32, max_queue=0)
+
+
+def test_sampling_is_seeded():
+    """temperature > 0 draws from the engine's torch.Generator: one seed,
+    one token stream."""
+    outs = []
+    for _ in range(2):
+        eng = _port_engine(slots=1, max_seq=32, temperature=1.0, sample_seed=3)
+        eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=8))
+        req = eng.queue[0]
+        eng.run()
+        outs.append(req.out)
+    assert outs[0] == outs[1] and len(outs[0]) == 8
+
+
+def test_lockstep_and_run_engine_on_cpu():
+    """launch.serve's lockstep of two port engines (plain vs the
+    kernel configuration, which on CPU tensors runs the plain versions)
+    and its timed closed-loop run."""
+    cfg = smoke_config(R.get_arch("qwen3-0.6b"))
+    params = launch.init_weights(cfg, seed=0, device="cpu")
+    kw = dict(slots=2, max_seq=48, kv_sketch_rank=4, kv_compress_ratio=2.0,
+              device="cpu")
+    engines = [Engine(cfg, params, **kw),
+               Engine(cfg.with_(use_flash_kernel=True), params, **kw)]
+    res = launch.lockstep(engines, launch.make_prompts(2, 8, cfg.vocab), max_new=20,
+                          compare=lambda got, want: got.shape == want.shape)
+    assert res["steps"] == 19 and max(res["diffs"]) == 0.0
+    assert res["compared"] == [True] * 18     # the last step frees every slot
+    assert res["comp_len"][0] == res["comp_len"][1]
+    seen = []
+    run = launch.run_engine(cfg, params, launch.make_prompts(3, 8, cfg.vocab),
+                            max_new=6, on_step=lambda eng, i: seen.append(i),
+                            **kw)
+    assert run["tokens"] == 18 and run["steps"] > 0 and run["seconds"] > 0
+    assert seen == list(range(run["steps"])) == list(range(len(run["step_ms"])))
+    assert not run["engine"].queue and not any(run["engine"].active)
