@@ -13,15 +13,19 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    source, all started together) and its time;
 2. kernels vs their plain PyTorch versions at the main path's shapes
    (rSVD 4096x4096 @ .x266, RP-HOSVD 256x65536 @ .x32): both kernels, the
-   on-chip Omega bit check, bit identity across blocks, the f64-oracle
-   accuracy ladder;
+   on-chip Omega bit check, kernel 2 == kernel 1 on kernel 2's own Omega
+   bit for bit (planner's split count and one split), bit identity across
+   blocks and across kernel 2's (bm, bn, splits) with each plan timed, the
+   f64-oracle accuracy ladder;
 3. the main path at the paper's sizes (rSVD n=4096 rank 256 on A_exp and
    A_linear, RP-HOSVD and RP-ST-HOSVD on 256^3 with ranks 32^3) through
    every method, with the reference's error limits and the kernels' launch
    counts;
 4. timings (median over CUDA events): each kernel beside its plain
    version, the f32 ``torch.matmul`` of the same product (``library_ms``)
-   and the least time the card could take (``bound_ms``); end-to-end rSVD
+   and the least time the card could take (``bound_ms``), kernel 2 under
+   ``ops.fused_plan`` also at the three RP-ST-HOSVD mode shapes (its plan,
+   split count and workspace bytes); end-to-end rSVD
    and RP-HOSVD per method (methods in turns), and a torch.profiler
    breakdown of one call of each;
 5. kernels 3-4 vs their plain versions: flash attention at qwen3-0.6b's
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +67,16 @@ PEAK_TC_FLOP_PER_S = 989e12
 
 RSVD_SHAPE = (4096, 4096, 266)     # A (m, k) @ Omega (k, p_hat = 256 + 10)
 HOSVD_SHAPE = (256, 65536, 32)     # mode-0 unfolding of 256^3 @ (65536, 32)
+# RP-ST-HOSVD's three mode projections of 256^3 at ranks 32^3: K shrinks
+# as each mode is truncated.
+STHOSVD_SHAPES = ((256, 65536, 32), (256, 8192, 32), (256, 1024, 32))
+# Kernel 2's (bm, bn, splits) held bit-identical to the planner's and timed.
+FUSED_PLANS = {"rsvd": ((256, 32, 1), (256, 32, 2), (256, 32, 4), (128, 64, 1),
+                        (128, 32, 1), (128, 32, 2), (64, 64, 1), (64, 32, 1),
+                        (64, 64, 4), (32, 32, 1)),
+               "hosvd": ((256, 32, 256), (256, 32, 128), (256, 32, 32),
+                         (128, 64, 256), (128, 32, 128), (64, 32, 64),
+                         (32, 32, 256))}
 REPS = 3
 E2E_REPS = 5
 
@@ -126,6 +141,54 @@ def interleaved_host_ms(torch, calls: dict, reps: int) -> dict:
             if rnd:
                 times[name].append((time.perf_counter() - t0) * 1e3)
     return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, "registers ...; spills ...") for each entry function of an
+    ``nvcc -Xptxas -v`` log, names demangled by ``c++filt`` where the host
+    has it."""
+    rows, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            rows.append([name, line.split(":", 1)[-1].strip() + "; " + spill])
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout
+        names = out.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = re.sub(r"\(.*\)$", "", n.replace("(anonymous namespace)::", ""))
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [tuple(r) for r in rows]
+
+
+def device_ms(torch, fn, reps: int = REPS) -> float | None:
+    """Device time of one call of ``fn``: the summed time of every kernel it
+    launches (torch.profiler), averaged over ``reps`` calls after a warm-up;
+    None where the trace holds no device time.  Unlike ``median_ms`` it
+    excludes the host's launch overhead, which sets the CUDA-event time of
+    calls shorter than it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def fmt_ms(t: float | None) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 def device_breakdown(torch, fn, top: int = 5):
@@ -527,9 +590,8 @@ def main() -> int:
     print(f"[setup] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
           f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[setup] ptxas {name}: {line.strip()}")
+        for kernel, usage in ptxas_usage(log):
+            print(f"[setup] ptxas {name} {kernel}: {usage}")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     key = key_from_seed(7)
@@ -622,6 +684,48 @@ def main() -> int:
     print(f"[identity] bit-identical across blocks {same_bk}; "
           f"fused == shgemm(fused_omega) for achlioptas, very_sparse")
 
+    # Kernel 2 == kernel 1 on kernel 2's own Omega (read back with A = I,
+    # 4096 rows at a time), bit for bit, under the planner's split count and
+    # under one split; kernel 1 runs on 32 x 32 blocks, sequentially in K.
+    for sname, (m, k, n) in shapes.items():
+        a = a_by_shape[sname]
+        plan = ops.fused_plan(m, n, k)
+        for dist in k2.SKETCH_DISTS:
+            for dt in (bf16, fp16):
+                kw = dict(dist=dist, omega_dtype=dt, s=k2._resolve_s(dist, None, k),
+                          row_offset=2 * plan[2], col_offset=7)
+                want = ops.shgemm(a, ops.chip_omega(key, k, n, **kw),
+                                  blocks=(32, 32, plan[2]))
+                for splits in sorted({plan[3], 1}):
+                    check(torch.equal(ops.shgemm_fused(a, key, n, splits=splits, **kw),
+                                      want),
+                          f"kernel 2 != kernel 1 on its own Omega: {sname} {dist} "
+                          f"{dt} splits={splits}")
+        print(f"[identity] {sname} {(m, k, n)}: kernel 2 under plan {plan} and "
+              f"under splits=1 == kernel 1 (blocks (32, 32, {plan[2]})) on kernel "
+              f"2's own Omega, bit for bit, for {list(k2.SKETCH_DISTS)} in bf16 "
+              f"and fp16 (offsets ({2 * plan[2]}, 7))")
+
+    # Bit identity across kernel 2's (bm, bn, splits) sharing bk, each timed.
+    for sname, (m, k, n) in shapes.items():
+        a = a_by_shape[sname]
+        plan = ops.fused_plan(m, n, k)
+        want = ops.shgemm_fused(a, key, n)
+        times = {}
+        for bm, bn, splits in FUSED_PLANS[sname]:
+            n_pad = n + (-n) % bn
+            call = (lambda bm=bm, bn=bn, splits=splits, n_pad=n_pad:
+                    k2.shgemm_fused_pallas(a, key, n_pad, bm=bm, bn=bn, bk=plan[2],
+                                           splits=splits))
+            check(torch.equal(call()[:, :n], want),
+                  f"kernel 2 {sname} not bit-identical at {(bm, bn, splits)}")
+            times[(bm, bn, splits)] = (median_ms(torch, call), device_ms(torch, call))
+        print(f"[plans] kernel 2 {sname} {(m, k, n)} gaussian bf16, (bm, bn, "
+              f"splits) at bk {plan[2]}, all bit-identical to the planner's "
+              f"{plan}; CUDA-event ms / device ms (kernel + reduction): "
+              + "; ".join(f"{p} {t:.4f} / {fmt_ms(d)}" for p, (t, d) in times.items())
+              + f" [{card}]")
+
     # f64-oracle accuracy ladder (reference DESIGN.md §2).
     b32 = torch.randn((k, n), generator=gen, device=dev)
     for dt in (bf16, fp16):
@@ -647,16 +751,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     k1.launches = 0
     k2.launches = 0
+    k2.reductions = 0
     errors = main_path.run_main_path(PAPER_RSVD, PAPER_HOSVD, device=dev)
     main_launches = {"shgemm": k1.launches, "shgemm_fused": k2.launches}
+    main_reductions = k2.reductions
     for (algo, case, method), e in errors.items():
         print(f"[main] {algo} {case} {method}: rel. error {e:.4e}")
-    print(f"[main] launches {main_launches}; peak memory "
+    print(f"[main] launches {main_launches} (kernel 2 with the split-K "
+          f"reduction: {main_reductions}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     failures = main_path.check_errors(errors)
     check(not failures, "main path errors over the limits: " + "; ".join(failures))
-    check(all(v > 0 for v in main_launches.values()),
-          f"a kernel of the path was never launched: {main_launches}")
+    check(all(v > 0 for v in main_launches.values()) and main_reductions > 0,
+          f"a kernel of the path was never launched: {main_launches}, "
+          f"reductions {main_reductions}")
 
     # -- 4. timings --------------------------------------------------------
     records = {}
@@ -665,28 +773,52 @@ def main() -> int:
         bm, bn, bk = ops.heuristic_blocks(m, n, k)
         b = torch.randn((k, n), generator=gen, device=dev).to(bf16)
         b_pad = ops._pad_to(b, bk, bn)
-        n_pad = b_pad.shape[1]
-        omega32 = proj.fused_omega(key, (k, n), device=dev).float()
         b_f32 = b.float()
-        rows = {
-            "shgemm": (lambda: k1.shgemm_pallas(a, b_pad, bm=bm, bn=bn, bk=bk),
-                       lambda: k1.shgemm_plain(a, b, 2),
-                       lambda: torch.matmul(a, b_f32), k * n * 2),
-            "shgemm_fused": (lambda: k2.shgemm_fused_pallas(a, key, n_pad, bm=bm,
-                                                            bn=bn, bk=bk),
-                             lambda: k2.shgemm_fused_plain(a, key, n),
-                             lambda: torch.matmul(a, omega32), 0),
-        }
-        for name, (kern, plain, lib, omega_bytes) in rows.items():
-            t_k = median_ms(torch, kern)
-            t_p = median_ms(torch, plain)
-            t_l = median_ms(torch, lib)
-            t_b, by = bound_ms(m, k, n, 2, omega_bytes)
-            print(f"[time] {name} {sname} ({m}x{k} @ {k}x{n}, bf16, 2 terms, "
-                  f"blocks {(bm, bn, bk)}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                  f"f32 matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by}); "
-                  f"kernel/bound {t_k / t_b:.2f}x [{card}]")
-            records[(name, sname)] = (t_k, t_p, t_l, t_b, by)
+        t_k = median_ms(torch, lambda: k1.shgemm_pallas(a, b_pad, bm=bm, bn=bn, bk=bk))
+        t_p = median_ms(torch, lambda: k1.shgemm_plain(a, b, 2))
+        t_l = median_ms(torch, lambda: torch.matmul(a, b_f32))
+        t_b, by = bound_ms(m, k, n, 2, k * n * 2)
+        print(f"[time] shgemm {sname} ({m}x{k} @ {k}x{n}, bf16, 2 terms, "
+              f"blocks {(bm, bn, bk)}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"f32 matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by}); "
+              f"kernel/bound {t_k / t_b:.2f}x [{card}]")
+        records[("shgemm", sname)] = (t_k, t_p, t_l, t_b, by)
+
+    # Kernel 2 under its planner at rSVD's shape and RP-ST-HOSVD's three
+    # mode shapes (the first is RP-HOSVD's).
+    fused_shapes = {"rsvd": RSVD_SHAPE, "hosvd": STHOSVD_SHAPES[0]}
+    fused_shapes.update({f"sthosvd_k{k}": (m, k, n) for m, k, n in STHOSVD_SHAPES[1:]})
+    per_shape = []
+    for sname, (m, k, n) in fused_shapes.items():
+        a = a_by_shape.get(sname)
+        a = operand_a(m, k) if a is None else a
+        bm, bn, bk, splits = ops.fused_plan(m, n, k)
+        a_pad = ops._pad_to(a, bm, bk)
+        n_pad = n + (-n) % bn
+        wbytes = k2.workspace_bytes(a_pad.shape[0], n_pad, a_pad.shape[1], bk, splits)
+        omega32 = proj.fused_omega(key, (k, n), device=dev).float()
+        kern = (lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm, bn=bn,
+                                               bk=bk, splits=splits))
+        t_k = median_ms(torch, kern)
+        t_d = device_ms(torch, kern)
+        t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, key, n))
+        t_l = median_ms(torch, lambda: torch.matmul(a, omega32))
+        t_b, by = bound_ms(m, k, n, 2, 0)
+        print(f"[time] shgemm_fused {sname} ({m}x{k} @ {k}x{n}, bf16 gaussian, 2 "
+              f"terms, fused_plan (bm, bn, bk, splits) {(bm, bn, bk, splits)}, "
+              f"grid {(n_pad // bn, a_pad.shape[0] // bm, splits)}, workspace "
+              f"{wbytes} B): kernel {t_k:.4f} ms (device {fmt_ms(t_d)} ms), plain "
+              f"{t_p:.4f} ms, f32 matmul "
+              f"{t_l:.4f} ms, bound {t_b:.4f} ms ({by}); kernel/bound "
+              f"{t_k / t_b:.2f}x [{card}]")
+        records[("shgemm_fused", sname)] = (t_k, t_p, t_l, t_b, by)
+        per_shape.append({"shape": [m, k, n], "plan": [bm, bn, bk, splits],
+                          "workspace_bytes": wbytes, "ms": t_k, "device_ms": t_d,
+                          "plain_ms": t_p,
+                          "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
+                          "max_abs_err": results.get(("shgemm_fused", sname, bf16,
+                                                      "gaussian"))})
+        del omega32
 
     a_exp = main_path.rsvd_inputs(PAPER_RSVD, device=dev)["exp"]
     t = main_path.hosvd_input(PAPER_HOSVD, device=dev)
@@ -763,6 +895,8 @@ def main() -> int:
                         "max_abs_err": results[errkey], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                         "library_ms": t_l})
+    kernels[-1]["reductions"] = main_reductions
+    kernels[-1]["per_shape"] = per_shape
     for name, replaces, launches, err in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:38",
              prefill["launches"], errs5[("flash", "prefill")]),

@@ -5,14 +5,25 @@
 // Replaces the Pallas TPU kernel `_fused_kernel`
 // (repro/kernels/shgemm_fused.py, entry `shgemm_fused_pallas`).
 //
-// What bounds it on an H100: by bytes, A reads plus C writes only
-// (`hbm_bytes_modeled`), ~68.4 MB or ~20 us at the rSVD shape.  The hash and
-// Box-Muller cost ALU work instead: each output row panel regenerates the
-// Omega tiles it needs, so the generation is repeated M / BM times, and for
-// the Gaussian (two hashes, logf, sqrtf, cosf per element) that ALU work,
-// not the bytes, is expected to set the time.  The design keeps the bytes at
-// the bound and leaves cutting the regeneration (larger BM, or tiles shared
-// across a cluster) to later work.
+// What bounds it on an H100: bytes -- A read once and C written once, 67.1 MB
+// at RP-HOSVD's 256 x 65536 @ . x 32 and 68.4 MB at rSVD's 4096 x 4096 @
+// . x 266, ~20 us each at 3.35 TB/s; the two-term tensor work is 2.1 and
+// 17.9 GFLOP (2 and 18 us at 989 TFLOP/s).  What it must beat besides is
+// the Gaussian's ALU work (hashes, logf, sqrtf, cosf) and, at RP-HOSVD's
+// single 256 x 32 output tile, the card's 132 SMs with one block's worth of
+// output.  The design (main loop in shgemm_splitk.cuh):
+//  - split-K: the grid's third axis cuts K into runs of whole bk tiles, so
+//    the one output tile of RP-HOSVD fills the card; each tile's partial
+//    product goes to a workspace and splitk_reduce sums them in tile order,
+//    the order of the unsplit accumulator, so the bits do not change;
+//  - Omega once per block: the 256 x 32 tile stacks eight warps on one
+//    Omega stage, so each element is hashed once for every 256 rows of A
+//    (once on the card at RP-HOSVD), and GenOmega hoists the row hash (once
+//    a stage) and the column hashes (once a block) out of the element, which
+//    then costs one fmix32 per stream; the next stage is generated into a
+//    second buffer while this one is multiplied;
+//  - A through a ring of RING stages filled by cp.async, so A's loads stay
+//    in flight across stages with one barrier a stage.
 //
 // Omega element (r, c) of the launch is the lattice point
 // (row_offset + r, col_offset + c); its value is rounded f32 -> store type
@@ -21,7 +32,7 @@
 #include <cuda_fp8.h>
 
 #include "counter_hash.cuh"
-#include "shgemm_common.cuh"
+#include "shgemm_splitk.cuh"
 
 namespace {
 
@@ -35,66 +46,137 @@ __device__ __forceinline__ float round_store(float v, int store_kind) {
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(q, fmt)));
 }
 
+// Each thread writes one row (k = lane) of PER columns of the stage.  Its
+// row hash is computed once a stage and the columns' hashes once a block,
+// into a table shared by the block (hc0 for stream 0, hc1 for stream 1), so
+// an element costs one fmix32 per stream on top of the sample's own math.
 template <typename T, int BM, int BN>
-struct GenB {
+struct GenOmega {
   static constexpr int NT = shg::Tile<BM, BN>::THREADS;
-  static_assert((shg::BKS * BN) % NT == 0, "Omega stage must split evenly");
+  static_assert((shg::BKS * BN) % NT == 0 && NT % shg::BKS == 0,
+                "Omega stage must split evenly, one row a lane");
   static constexpr int PER = shg::BKS * BN / NT;
+  static constexpr int SMEM_WORDS = 2 * BN;
   uint32_t k0, k1, row_offset, col;  // col: lattice column of this block
   int dist, store_kind;
   float thr1, thr2;
+  const uint32_t* hc;
 
-  __device__ __forceinline__ void fetch(int) {}
+  __device__ __forceinline__ void init(uint32_t* table) {
+    for (int i = threadIdx.x; i < 2 * BN; i += NT)
+      table[i] = shg::col_hash(k1, col + static_cast<uint32_t>(i % BN),
+                               static_cast<uint32_t>(i / BN));
+    hc = table;
+  }
+
   __device__ __forceinline__ void store(uint16_t* Bs, int kbase) {
-#pragma unroll 4
+    const int k = threadIdx.x % shg::BKS;
+    const uint32_t hr =
+        shg::row_hash(k0, row_offset + static_cast<uint32_t>(kbase + k));
+#pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int idx = threadIdx.x + j * NT;
-      const int n = idx / shg::BKS, k = idx % shg::BKS;
-      const uint32_t row = row_offset + static_cast<uint32_t>(kbase + k);
-      float v = shg::sample(k0, k1, row, col + static_cast<uint32_t>(n), dist,
-                            thr1, thr2);
+      const int n = threadIdx.x / shg::BKS + j * (NT / shg::BKS);
+      const float v = shg::sample(hr, hc[n], hc[BN + n], dist, thr1, thr2);
       Bs[n * shg::B_STRIDE + k] = shg::LowP<T>::round(round_store(v, store_kind));
     }
   }
 };
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, int TERMS>
 __global__ void __launch_bounds__(shg::Tile<BM, BN>::THREADS)
-    shgemm_fused_kernel(const float* __restrict__ A, float* __restrict__ C,
-                        int N, int K, int bk, int terms, uint32_t k0,
-                        uint32_t k1, uint32_t row_offset, uint32_t col_offset,
-                        int dist, int store_kind, float thr1, float thr2) {
-  GenB<T, BM, BN> prod{k0, k1, row_offset,
-                       col_offset + static_cast<uint32_t>(blockIdx.x) * BN,
-                       dist, store_kind, thr1, thr2};
-  shg::shgemm_mainloop<T, BM, BN>(A, C, N, K, bk, terms, prod);
+    shgemm_fused_kernel(const float* __restrict__ A, float* __restrict__ out,
+                        int M, int N, int K, int bk, uint32_t k0, uint32_t k1,
+                        uint32_t row_offset, uint32_t col_offset, int dist,
+                        int store_kind, float thr1, float thr2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  GenOmega<T, BM, BN> prod{k0, k1, row_offset,
+                           col_offset + static_cast<uint32_t>(blockIdx.x) * BN,
+                           dist, store_kind, thr1, thr2, nullptr};
+  shg::splitk_mainloop<T, BM, BN, TERMS>(A, out, M, N, K, bk, prod, smem);
+}
+
+struct Args {
+  const float* A;
+  float* C;
+  float* W;
+  int M, N, K, bk, splits;
+  uint32_t k0, k1, row_offset, col_offset;
+  int dist, store_kind;
+  float thr1, thr2;
+  cudaStream_t stream;
+};
+
+template <typename T, int BM, int BN, int TERMS>
+int launch(const Args& a) {
+  auto kernel = shgemm_fused_kernel<T, BM, BN, TERMS>;
+  constexpr int smem = shg::SplitKSmem<BM, BN>::BYTES +
+                       GenOmega<T, BM, BN>::SMEM_WORDS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.N / BN, a.M / BM, a.splits), shg::Tile<BM, BN>::THREADS, smem,
+           a.stream>>>(a.A, a.splits == 1 ? a.C : a.W, a.M, a.N, a.K, a.bk,
+                       a.k0, a.k1, a.row_offset, a.col_offset, a.dist,
+                       a.store_kind, a.thr1, a.thr2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(a.M) * a.N;
+  shg::splitk_reduce<<<static_cast<unsigned>((mn + shg::REDUCE_THREADS - 1) /
+                                             shg::REDUCE_THREADS),
+                       shg::REDUCE_THREADS, 0, a.stream>>>(a.W, a.C, mn,
+                                                           a.K / a.bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int BM, int BN>
+int launch_terms(const Args& a, int terms) {
+  if (terms == 1) return launch<T, BM, BN, 1>(a);
+  if (terms == 2) return launch<T, BM, BN, 2>(a);
+  if constexpr (!std::is_same<T, __half>::value) {
+    if (terms == 3) return launch<T, BM, BN, 3>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_tile(const Args& a, int bm, int bn, int terms) {
+  if (bm == 256 && bn == 32) return launch_terms<T, 256, 32>(a, terms);
+  if (bm == 128 && bn == 64) return launch_terms<T, 128, 64>(a, terms);
+  if (bm == 128 && bn == 32) return launch_terms<T, 128, 32>(a, terms);
+  if (bm == 64 && bn == 64) return launch_terms<T, 64, 64>(a, terms);
+  if (bm == 64 && bn == 32) return launch_terms<T, 64, 32>(a, terms);
+  if (bm == 32 && bn == 64) return launch_terms<T, 32, 64>(a, terms);
+  if (bm == 32 && bn == 32) return launch_terms<T, 32, 32>(a, terms);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-#define SHG_LAUNCH(T, BM_, BN_)                                              \
-  shgemm_fused_kernel<T, BM_, BN_>                                           \
-      <<<dim3(N / BN_, M / BM_), shg::Tile<BM_, BN_>::THREADS, 0, stream>>>( \
-          static_cast<const float*>(A), static_cast<float*>(C), N, K, bk,    \
-          terms, k0, k1, row_offset, col_offset, dist, store_kind, thr1, thr2)
-
 // dist: 0 gaussian, 1 sign (achlioptas / very_sparse, thresholds thr1 < thr2).
 // store_kind: 0 the MMA type itself, 1 fp8 e4m3, 2 fp8 e5m2 (then lowp_fp16
-// must be 0: fp8 is consumed as bf16).  Returns cudaGetLastError().
-extern "C" int shgemm_fused_launch(const void* A, void* C, int M, int N, int K,
-                                   uint32_t k0, uint32_t k1,
+// must be 0: fp8 is consumed as bf16).  splits > 1 needs the workspace W of
+// (K / bk) * M * N floats; W is unused with splits == 1.  Launches on
+// `stream` of device `device`, does not synchronise, allocates nothing.
+// Returns the first CUDA error (0 on success).
+extern "C" int shgemm_fused_launch(const void* A, void* C, void* W, int M,
+                                   int N, int K, uint32_t k0, uint32_t k1,
                                    uint32_t row_offset, uint32_t col_offset,
-                                   int bm, int bn, int bk, int terms,
-                                   int lowp_fp16, int store_kind, int dist,
-                                   float thr1, float thr2, void* stream_ptr,
-                                   int device) {
+                                   int bm, int bn, int bk, int splits,
+                                   int terms, int lowp_fp16, int store_kind,
+                                   int dist, float thr1, float thr2,
+                                   void* stream_ptr, int device) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (terms < 1 || terms > 3 || (terms == 3 && lowp_fp16) || bk % shg::BKS ||
-      M % bm || N % bn || K % bk || dist < 0 || dist > 1 || store_kind < 0 ||
+  if (terms < 1 || terms > 3 || (terms == 3 && lowp_fp16) || bk <= 0 ||
+      bk % shg::BKS || bm <= 0 || bn <= 0 || M % bm || N % bn || K % bk ||
+      splits < 1 || splits > 65535 || (K / bk) % splits ||
+      (splits > 1 && W == nullptr) || dist < 0 || dist > 1 || store_kind < 0 ||
       store_kind > 2 || (store_kind != kStoreLowp && lowp_fp16))
     return static_cast<int>(cudaErrorInvalidValue);
-  SHG_DISPATCH(bm, bn, lowp_fp16, SHG_LAUNCH);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{static_cast<const float*>(A), static_cast<float*>(C),
+               static_cast<float*>(W), M, N, K, bk, splits, k0, k1,
+               row_offset, col_offset, dist, store_kind, thr1, thr2,
+               static_cast<cudaStream_t>(stream_ptr)};
+  return lowp_fp16 ? launch_tile<__half>(a, bm, bn, terms)
+                   : launch_tile<__nv_bfloat16>(a, bm, bn, terms);
 }

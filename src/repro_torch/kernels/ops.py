@@ -10,9 +10,10 @@ calls under ``cfg.use_flash_kernel``; both kernels mask their ragged edges
 themselves, so nothing here pads them.  Both run on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain versions run.
 
-Blocks come from ``heuristic_blocks`` (the port's copy of the reference's
-shrink-to-fit heuristic, with this card's defaults) unless ``blocks=`` is
-given.  The autotuner is not ported yet.
+Kernel 1's blocks come from ``heuristic_blocks`` (the port's copy of the
+reference's shrink-to-fit heuristic, with this card's defaults) and kernel
+2's blocks and split count from ``fused_plan``, unless ``blocks=`` is given.
+The autotuner is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,50 @@ def heuristic_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
     while bm > _k.SUPPORTED_BM[0] and (-(-m // bm)) * (-(-n // bn)) < SM_COUNT:
         bm //= 2
     return bm, bn, bk
+
+
+# Kernel 2's split count: the least share of the waves its grid occupies
+# that the blocks must fill (one block an SM, as the 256-row tile's shared
+# memory allows), and the most workspace a split may take.
+WAVE_FILL = 0.8
+MAX_WORKSPACE_BYTES = 1 << 30
+
+
+def fused_splits(m: int, n: int, k: int,
+                 blocks: tuple[int, int, int]) -> int:
+    """Kernel 2's split count for ``blocks``: the smallest divisor of the
+    ``k / bk`` tiles whose grid has at least ``SM_COUNT`` blocks filling at
+    least ``WAVE_FILL`` of the waves they occupy (so no nearly empty last
+    wave doubles the time), or the largest divisor where none does; 1 where
+    the workspace would pass ``MAX_WORKSPACE_BYTES``."""
+    bm, bn, bk = blocks
+    tiles = -(-k // bk)
+    grid = -(-m // bm) * -(-n // bn)
+    if _kf.workspace_bytes(_round_up(m, bm), _round_up(n, bn), tiles * bk, bk,
+                           2) > MAX_WORKSPACE_BYTES:
+        return 1
+
+    def fills(d: int) -> bool:
+        nb = grid * d
+        return nb >= SM_COUNT and nb >= WAVE_FILL * SM_COUNT * -(-nb // SM_COUNT)
+
+    divisors = [d for d in range(1, min(tiles, _kf.MAX_SPLITS) + 1)
+                if tiles % d == 0]
+    return next((d for d in divisors if fills(d)), divisors[-1])
+
+
+def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """Kernel 2's (bm, bn, bk, splits).  bm is the smallest row block that
+    covers m, up to 256: at 256 the eight warps of a block share each Omega
+    stage, so Omega is hashed once for every 256 rows of A.  bn is the
+    column block of that tile with the least padding of n (the larger on a
+    tie); bk is ``heuristic_blocks``'s, so the bits equal kernel 1's under
+    its default blocks; the split count is ``fused_splits``'s."""
+    bm = next((b for b in (32, 64, 128, 256) if b >= m), 256)
+    bn = min((b for b in _k.SUPPORTED_BN if (bm, b) in _kf.FUSED_TILES),
+             key=lambda b: (_round_up(n, b), -b))
+    bk = min(_k.DEFAULT_BK, _round_up(max(k, 1), _k.STAGE_K))
+    return bm, bn, bk, fused_splits(m, n, k, (bm, bn, bk))
 
 
 def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -100,9 +145,16 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
                  omega_dtype=torch.bfloat16,
                  blocks: tuple[int, int, int] | None = None, terms: int = 2,
                  s: float | None = None, row_offset: int = 0,
-                 col_offset: int = 0, device=None) -> torch.Tensor:
+                 col_offset: int = 0, splits: int | None = None,
+                 device=None) -> torch.Tensor:
     """C_f32 = A_f32 @ Omega(key)[row_offset:+k, col_offset:+n], Omega
     generated in-kernel.
+
+    ``blocks`` is the reference's ``(bm, bn, bk)``; without it the blocks
+    come from ``fused_plan``.  ``splits`` (port only) pins the split-K count,
+    which must divide the padded k's ``bk`` tiles; without it
+    ``fused_splits`` picks it for the blocks.  The result's bits depend on
+    ``bk`` alone.
 
     A is zero-padded to block multiples: pad rows of A null the extra
     generated Omega rows and pad columns are sliced off, so the result does
@@ -126,15 +178,43 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
         compute_dtype = omega_dtype
     else:
         raise TypeError(f"omega_dtype must be bf16/fp16/fp8, got {omega_dtype}")
-    bm, bn, bk = heuristic_blocks(m, n, k) if blocks is None else blocks
+    if blocks is None:
+        bm, bn, bk, planned = fused_plan(m, n, k)
+    else:
+        bm, bn, bk = blocks
+        _kf.check_blocks(bm, bn, bk)
+        planned = fused_splits(m, n, k, blocks)
     _validate_offset("row_offset", row_offset, bk)
     _validate_offset("col_offset", col_offset, 1)
     n_pad = n + (-n) % bn
     c = _kf.shgemm_fused_pallas(
-        _pad_to(a, bm, bk), key, n_pad, bm=bm, bn=bn, bk=bk, terms=terms,
-        dist=dist, s=_kf._resolve_s(dist, s, k), store_dtype=omega_dtype,
+        _pad_to(a, bm, bk), key, n_pad, bm=bm, bn=bn, bk=bk,
+        splits=planned if splits is None else splits, terms=terms, dist=dist,
+        s=_kf._resolve_s(dist, s, k), store_dtype=omega_dtype,
         lowp_dtype=compute_dtype, offsets=(row_offset, col_offset))
     return c[:m, :n]
+
+
+def chip_omega(key, k: int, n: int, *, dist: str = "gaussian",
+               omega_dtype=torch.bfloat16, s: float | None = None,
+               row_offset: int = 0, col_offset: int = 0, chunk: int = 4096,
+               device=None) -> torch.Tensor:
+    """Kernel 2's own Omega[row_offset:+k, col_offset:+n] in the 16-bit type
+    its MMAs consume, read back through the kernel with A = I, ``chunk``
+    rows at a time: with A = I every split term, product and partial sum is
+    exact, so the output is the generated Omega.  ``s`` defaults to the one
+    of a k-row Omega, as ``shgemm_fused``'s does."""
+    dev = resolve_device(device)
+    s = _kf._resolve_s(dist, s, k)
+    lowp = torch.bfloat16 if omega_dtype in _kf._FP8 else omega_dtype
+    parts = []
+    for r in range(0, k, chunk):
+        rows = min(chunk, k - r)
+        parts.append(shgemm_fused(
+            torch.eye(rows, device=dev), key, n, dist=dist,
+            omega_dtype=omega_dtype, s=s, row_offset=row_offset + r,
+            col_offset=col_offset, device=dev).to(lowp))
+    return torch.cat(parts)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -55,8 +55,8 @@ def smem_bytes(bm: int, bn: int, bk: int) -> int:
     """Static shared memory of one block (the counterpart of the reference's
     ``vmem_bytes``): the f32 A stage and the 16-bit B stage, each 32 deep and
     padded by 8 along K.  ``bk`` does not enter: K is staged 32 at a time and
-    ``bk`` only sets how often partials flush into the accumulator.  The
-    fused kernel generates Omega into the same B stage, so it is the same."""
+    ``bk`` only sets how often partials flush into the accumulator.  Kernel
+    2's dynamic shared memory is ``shgemm_fused.smem_bytes``."""
     check_blocks(bm, bn, bk)
     return bm * (STAGE_K + 8) * 4 + bn * (STAGE_K + 8) * 2
 

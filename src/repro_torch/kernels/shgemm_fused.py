@@ -3,9 +3,15 @@ generated inside the kernel and never stored in device memory.
 
 Port of the Pallas TPU kernel ``_fused_kernel``
 (``repro/kernels/shgemm_fused.py``, entry ``shgemm_fused_pallas``) as
-hand-written CUDA C++ for ``sm_90a`` (``csrc/shgemm_fused.cu``): the split
-GEMM of kernel 1, with each (32, bn) Omega stage hashed into shared memory
-from (key words, global row + row_offset, global col + col_offset).
+hand-written CUDA C++ for ``sm_90a`` (``csrc/shgemm_fused.cu`` over
+``csrc/shgemm_splitk.cuh``): the split GEMM of kernel 1, with each (32, bn)
+Omega stage hashed into shared memory from (key words, global row +
+row_offset, global col + col_offset), once per block and shared by its
+warps.  ``splits`` > 1 cuts K into that many runs of whole ``bk`` tiles,
+one per block along the grid's third axis; each writes its tiles' partial
+products to a workspace (``workspace_bytes``) and a second kernel sums them
+in tile order, so the output bits depend on ``bk`` alone, never on the
+blocks or the split count, and equal kernel 1's on the same Omega.
 
 Determinism contract (the reference's DESIGN.md §9): every Omega element is
 a pure function of (key, row, col) on the global lattice.  The uint32 bits
@@ -48,8 +54,16 @@ _TWO_NEG_25 = float(2.0**-25)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _STORE_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
-# Kernel launches made by ``shgemm_fused_pallas`` in this process.
+# (bm, bn) instantiated in csrc/shgemm_fused.cu: kernel 1's tiles plus
+# 256 x 32, eight warps sharing one Omega stage.
+FUSED_TILES = ((256, 32), (128, 64), (128, 32), (64, 64), (64, 32), (32, 64),
+               (32, 32))
+MAX_SPLITS = 65535  # the grid's third dimension
+
+# Kernel launches made by ``shgemm_fused_pallas`` in this process, and how
+# many of them also launched the split-K reduction.
 launches = 0
+reductions = 0
 
 
 def key_pair(key) -> tuple[int, int]:
@@ -158,33 +172,73 @@ def shgemm_fused_plain(a: torch.Tensor, words, n: int, *, terms: int = 2,
     return _k.shgemm_plain(a, omega.to(lowp_dtype), terms)
 
 
+def check_blocks(bm: int, bn: int, bk: int) -> None:
+    if (bm, bn) not in FUSED_TILES or bk <= 0 or bk % _k.STAGE_K:
+        raise ValueError(
+            f"blocks {(bm, bn, bk)} unsupported: (bm, bn) in {FUSED_TILES}, "
+            f"bk a positive multiple of {_k.STAGE_K}")
+
+
+def check_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
+               splits: int) -> None:
+    """Raise unless (bm, bn, bk, splits) is a launchable plan for the padded
+    launch shape (m, n, k)."""
+    check_blocks(bm, bn, bk)
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"shapes {(m, k, n)} not divisible by blocks "
+                         f"{(bm, bk, bn)}")
+    if (not isinstance(splits, (int, np.integer)) or isinstance(splits, bool)
+            or splits < 1 or splits > MAX_SPLITS or (k // bk) % splits):
+        raise ValueError(
+            f"splits={splits!r} must be an integer in [1, {MAX_SPLITS}] that "
+            f"divides the {k // bk} bk tiles of k={k} (bk={bk})")
+
+
+RING = 3  # A stages in flight (csrc/shgemm_splitk.cuh)
+
+
+def smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of one block of kernel 2 (``SplitKSmem`` plus
+    ``GenOmega``'s table in csrc/): the ring of f32 A stages and two 16-bit
+    Omega stages, each 32 deep and padded by 8 along K, and the block's
+    column hashes, two streams of bn words."""
+    return (RING * bm * (_k.STAGE_K + 8) * 4 + 2 * bn * (_k.STAGE_K + 8) * 2
+            + 2 * bn * 4)
+
+
+def workspace_bytes(m: int, n: int, k: int, bk: int, splits: int) -> int:
+    """Device memory of the split-K workspace W[k / bk, m, n] (f32) for the
+    padded launch shape; none with one split."""
+    return 0 if splits == 1 else (k // bk) * m * n * 4
+
+
 def _launcher():
     fn = _build.load("shgemm_fused").shgemm_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
 
 
 def shgemm_fused_pallas(a: torch.Tensor, words, n: int, *, bm: int, bn: int,
-                        bk: int, terms: int = 2, dist: str = "gaussian",
+                        bk: int, splits: int = 1, terms: int = 2,
+                        dist: str = "gaussian",
                         s: float = 3.0, store_dtype=None,
                         lowp_dtype=torch.bfloat16,
                         offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """C[m, n] = A[m, k] @ Omega(words)[k+r0, n+c0]; Omega never touches
     device memory.  Shapes must be multiples of the block sizes;
     ``ops.shgemm_fused`` pads arbitrary shapes before calling this.
+    ``splits`` must divide ``k / bk``; with more than one, a workspace of
+    ``workspace_bytes`` is allocated and the reduction kernel launched too.
     ``offsets`` is ``(row_offset, col_offset)``."""
     m, k = a.shape
     if a.dtype != torch.float32:
         raise TypeError(f"A must be f32, got {a.dtype}")
     if lowp_dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"Omega dtype must be bf16/fp16, got {lowp_dtype}")
-    _k.check_blocks(bm, bn, bk)
-    if m % bm or n % bn or k % bk:
-        raise ValueError(f"shapes {(m, k, n)} not divisible by blocks "
-                         f"{(bm, bk, bn)}")
+    check_plan(m, n, k, bm, bn, bk, splits)
     if terms not in (1, 2, 3) or (terms == 3 and lowp_dtype == torch.float16):
         raise ValueError(f"terms={terms} unsupported for {lowp_dtype}")
     if dist not in SKETCH_DISTS:
@@ -208,17 +262,21 @@ def shgemm_fused_pallas(a: torch.Tensor, words, n: int, *, bm: int, bn: int,
     if m // bm > 65535:
         raise ValueError(f"m={m} needs more than 65535 row blocks of {bm}")
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    w = (torch.empty((k // bk, m, n), dtype=torch.float32, device=a.device)
+         if splits > 1 else None)
     err = _launcher()(
-        a.data_ptr(), c.data_ptr(), m, n, k, k0, k1, row_offset & _MASK,
-        col_offset & _MASK, bm, bn, bk, terms,
+        a.data_ptr(), c.data_ptr(), None if w is None else w.data_ptr(), m, n,
+        k, k0, k1, row_offset & _MASK, col_offset & _MASK, bm, bn, bk, splits,
+        terms,
         int(lowp_dtype == torch.float16), _STORE_KIND.get(store_dtype, 0),
         0 if dist == "gaussian" else 1,
         float(np.float32(1.0 / (2.0 * s))), float(np.float32(1.0 / s)),
         torch.cuda.current_stream(a.device).cuda_stream, a.device.index or 0)
     if err:
         raise RuntimeError(f"shgemm_fused kernel launch failed: CUDA error {err}")
-    global launches
+    global launches, reductions
     launches += 1
+    reductions += splits > 1
     return c
 
 

@@ -80,6 +80,61 @@ def test_fused_equals_shgemm_of_fused_omega(gen, dist):
                                ops.shgemm(a, omega, blocks=blocks), rtol=0, atol=0)
 
 
+# Kernel 2's plans: (bm, bn, splits) sharing bk = 128 on 16 tiles of K.
+FUSED_PLANS = [(256, 32, 1), (256, 32, 2), (256, 32, 16), (128, 64, 4),
+               (64, 32, 8), (32, 64, 1), (32, 32, 16)]
+
+
+@pytest.mark.parametrize("dist", ["gaussian", "very_sparse"])
+@pytest.mark.parametrize("plan", FUSED_PLANS[1:], ids=str)
+def test_fused_bit_identical_across_plans(gen, dist, plan):
+    """The output bits depend on bk alone: not on bm, bn or the split
+    count, and the split path launches the reduction."""
+    a = _a(gen, 512, 2048)
+    bm, bn, splits = plan
+    want = ops.shgemm_fused(a, KEY, 64, dist=dist, blocks=(256, 32, 128), splits=1)
+    before = k2.reductions
+    got = ops.shgemm_fused(a, KEY, 64, dist=dist, blocks=(bm, bn, 128), splits=splits)
+    assert k2.reductions == before + (splits > 1)
+    assert torch.equal(got, want)
+
+
+HOSVD_LIKE = (256, 16384, 32)
+
+
+@pytest.mark.parametrize("dist", ["gaussian", "achlioptas", "very_sparse"])
+@pytest.mark.parametrize("omega_dtype", OMEGA_DTYPES, ids=str)
+def test_fused_equals_kernel1_on_chip_omega(gen, dist, omega_dtype):
+    """At an RP-HOSVD-like shape under the planner's split count, kernel 2
+    equals kernel 1 applied to kernel 2's own Omega, bit for bit (kernel 1
+    runs on 32 x 32 blocks, sequentially in K)."""
+    m, k, n = HOSVD_LIKE
+    a = _a(gen, m, k)
+    bk = ops.fused_plan(m, n, k)[2]
+    s = k2._resolve_s(dist, None, k)
+    kw = dict(dist=dist, omega_dtype=omega_dtype, s=s, row_offset=2 * bk,
+              col_offset=3)
+    omega = ops.chip_omega(KEY, k, n, **kw)
+    got = ops.shgemm_fused(a, KEY, n, **kw)
+    assert ops.fused_plan(m, n, k)[3] > 1
+    assert torch.equal(got, ops.shgemm(a, omega, blocks=(32, 32, bk)))
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"blocks": (256, 64, 256)}, "unsupported"),
+    ({"blocks": (256, 32, 100)}, "unsupported"),
+    ({"blocks": (256, 32, 256), "splits": 3}, "must be an integer"),
+    ({"splits": 0}, "must be an integer"),
+    ({"splits": 5}, "must be an integer"),
+])
+def test_fused_bad_plan_raises(gen, kw, match):
+    a = _a(gen, 256, 1024)
+    before = k2.launches
+    with pytest.raises(ValueError, match=match):
+        ops.shgemm_fused(a, KEY, 32, **kw)
+    assert k2.launches == before
+
+
 def test_kernel_rejects_misaligned_operand(gen):
     a = _a(gen, 64, 65)[:, 1:]  # contiguous rows are not the point: a view
     b = torch.ones((64, 32), dtype=torch.bfloat16, device="cuda")

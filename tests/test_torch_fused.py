@@ -188,3 +188,108 @@ def test_key_pair_forms():
     assert kf.key_pair(np.array([[3, 4]], np.uint32)) == (3, 4)
     assert kf.key_pair(torch.tensor([5, 2**32 + 6])) == (5, 6)
 
+
+
+# Kernel 2's planner (ops.fused_plan): the main path's shapes, then others.
+PLAN_SHAPES = {"rsvd": (4096, 266, 4096), "hosvd": (256, 32, 65536),
+               "sthosvd_mode1": (256, 32, 8192), "sthosvd_mode2": (256, 32, 1024),
+               "small": (40, 30, 256), "odd": (300, 130, 700), "tiny": (7, 3, 130),
+               "tall": (20000, 8, 3000)}
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_fused_plan_is_launchable(shape):
+    m, n, k = PLAN_SHAPES[shape]
+    bm, bn, bk, splits = ops.fused_plan(m, n, k)
+    k_pad = -(-k // bk) * bk
+    kf.check_plan(-(-m // bm) * bm, -(-n // bn) * bn, k_pad, bm, bn, bk, splits)
+    assert (k_pad // bk) % splits == 0
+    assert bk == ops.heuristic_blocks(m, n, k)[2]  # kernel 1's bk: equal bits
+    grid = -(-m // bm) * -(-n // bn)
+    if grid * (k_pad // bk) >= ops.SM_COUNT:
+        assert grid * splits >= ops.SM_COUNT
+    else:
+        assert splits == k_pad // bk
+
+    def fills(d):  # at least SM_COUNT blocks, filling WAVE_FILL of their waves
+        waves = -(-grid * d // ops.SM_COUNT)
+        return grid * d >= max(ops.SM_COUNT, ops.WAVE_FILL * ops.SM_COUNT * waves)
+    smaller = [d for d in range(1, splits) if (k_pad // bk) % d == 0]
+    assert not any(fills(d) for d in smaller)  # the least split count that does
+
+
+def test_fused_plan_at_the_main_path_shapes():
+    """rSVD's 144 output tiles would leave a second wave 9 % full, so K is
+    split in 4 (576 blocks, 87 % of 5 waves); RP-HOSVD's one 256 x 32
+    output tile is split over all its tiles; Omega is hashed once per 256
+    rows."""
+    assert ops.fused_plan(*PLAN_SHAPES["rsvd"]) == (256, 32, 256, 4)
+    assert ops.fused_plan(*PLAN_SHAPES["hosvd"]) == (256, 32, 256, 256)
+    assert ops.fused_plan(*PLAN_SHAPES["sthosvd_mode1"]) == (256, 32, 256, 32)
+    assert ops.fused_plan(*PLAN_SHAPES["sthosvd_mode2"]) == (256, 32, 256, 4)
+
+
+def test_fused_plan_caps_the_workspace():
+    """Split-K needs a workspace of k / bk output-sized tiles: past
+    MAX_WORKSPACE_BYTES the planner keeps one split."""
+    m, n, k = 8192, 32, 2**20  # 4096 tiles of a 32-block grid: 4 GiB
+    assert kf.workspace_bytes(m, n, k, 256, 2) > ops.MAX_WORKSPACE_BYTES
+    assert ops.fused_plan(m, n, k) == (256, 32, 256, 1)
+    assert ops.fused_plan(m, n, k // 8)[3] > 1  # 512 MiB: split
+
+
+@pytest.mark.parametrize("m,n,k,bk,splits", [(256, 32, 65536, 256, 256),
+                                             (4096, 288, 4096, 256, 16),
+                                             (64, 64, 1024, 128, 2),
+                                             (4096, 288, 4096, 256, 1)])
+def test_workspace_bytes_formula(m, n, k, bk, splits):
+    want = 0 if splits == 1 else (k // bk) * m * n * 4
+    assert kf.workspace_bytes(m, n, k, bk, splits) == want
+    if (m, n, k) == (256, 32, 65536):
+        assert want == 8 * 2**20  # the HOSVD shape's W: 8 MiB
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("dist", ["gaussian", "achlioptas"])
+def test_ops_shgemm_fused_with_splits_matches_reference(dist, splits):
+    """``splits=`` pins the split count; on the CPU it validates the plan
+    and runs the plain version, which still matches the reference."""
+    m, k, n = 40, 1024, 30  # bk 256: four tiles
+    rng = np.random.default_rng(9)
+    a = (rng.standard_normal((m, k)) if dist == "gaussian"  # as above
+         else rng.integers(-2**14, 2**14, (m, k))).astype(np.float32)
+    want = np.asarray(ref_ops.shgemm_fused(jnp.asarray(a), JKEY, n, dist=dist,
+                                           blocks=(8, 128, 256)))
+    got = ops.shgemm_fused(torch.from_numpy(a), KEY, n, dist=dist, splits=splits,
+                           device="cpu").numpy()
+    if dist != "gaussian":
+        np.testing.assert_array_equal(got, want)
+        return
+    gap = _lowp_omega_gap(jnp.bfloat16, torch.bfloat16, dist, k, n, None, (0, 0))
+    allowance = np.abs(a.astype(np.float64)) @ gap
+    np.testing.assert_array_less(np.abs(got - want) - allowance,
+                                 1e-4 + 1e-5 * np.abs(want))
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"blocks": (256, 64, 256)}, "unsupported"),
+    ({"blocks": (128, 32, 48)}, "unsupported"),
+    ({"splits": 3}, "must be an integer"),
+    ({"splits": 0}, "must be an integer"),
+    ({"splits": 8}, "must be an integer"),
+    ({"splits": 2.0}, "must be an integer"),
+])
+def test_fused_bad_plan_raises_on_cpu(kw, match):
+    with pytest.raises(ValueError, match=match):
+        ops.shgemm_fused(torch.ones((40, 1024)), KEY, 30, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("tile", kf.FUSED_TILES, ids=str)
+def test_fused_tiles_fit_shared_memory(tile):
+    """Every instantiated tile fits the 227 KB a block may use; the
+    mirror's formula is csrc/'s at the planner's 256 x 32 tile."""
+    bm, bn = tile
+    assert kf.smem_bytes(bm, bn) <= 232448
+    assert bm * bn // 32 <= 1024  # threads: one warp per 32 x 32
+    if tile == (256, 32):
+        assert kf.smem_bytes(bm, bn) == 3 * 256 * 40 * 4 + 2 * 32 * 40 * 2 + 256
