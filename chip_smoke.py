@@ -15,17 +15,18 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    (rSVD 4096x4096 @ .x266, RP-HOSVD 256x65536 @ .x32): both kernels, the
    on-chip Omega bit check, kernel 2 == kernel 1 on kernel 2's own Omega
    bit for bit (planner's split count and one split), bit identity across
-   blocks and across kernel 2's (bm, bn, splits) with each plan timed, the
-   f64-oracle accuracy ladder;
+   blocks and across each kernel's (bm, bn, splits) with each plan timed
+   (the ``[plans]`` lines), the f64-oracle accuracy ladder;
 3. the main path at the paper's sizes (rSVD n=4096 rank 256 on A_exp and
    A_linear, RP-HOSVD and RP-ST-HOSVD on 256^3 with ranks 32^3) through
    every method, with the reference's error limits and the kernels' launch
-   counts;
-4. timings (median over CUDA events): each kernel beside its plain
-   version, the f32 ``torch.matmul`` of the same product (``library_ms``)
-   and the least time the card could take (``bound_ms``), kernel 2 under
-   ``ops.fused_plan`` also at the three RP-ST-HOSVD mode shapes (its plan,
-   split count and workspace bytes); end-to-end rSVD
+   and split-K reduction counts;
+4. timings (median over CUDA events, and device time from torch.profiler):
+   kernels 1 and 2 under their planners (``ops.shgemm_plan``,
+   ``ops.fused_plan``) at rSVD's shape and the three RP-ST-HOSVD mode
+   shapes, each beside its plain version, the f32 ``torch.matmul`` of the
+   same product (``library_ms``) and the least time the card could take
+   (``bound_ms``); end-to-end rSVD
    and RP-HOSVD per method (methods in turns), and a torch.profiler
    breakdown of one call of each;
 5. kernels 3-4 vs their plain versions: flash attention at qwen3-0.6b's
@@ -70,6 +71,14 @@ HOSVD_SHAPE = (256, 65536, 32)     # mode-0 unfolding of 256^3 @ (65536, 32)
 # RP-ST-HOSVD's three mode projections of 256^3 at ranks 32^3: K shrinks
 # as each mode is truncated.
 STHOSVD_SHAPES = ((256, 65536, 32), (256, 8192, 32), (256, 1024, 32))
+# Kernel 1's (bm, bn, splits) held bit-identical to the planner's and timed
+# (the sweep that chose ``ops.shgemm_plan``'s tile at rSVD).
+SHGEMM_PLANS = {"rsvd": ((128, 32, 1), (128, 32, 2), (128, 32, 4), (256, 32, 1),
+                         (256, 32, 4), (256, 32, 8), (128, 64, 1), (128, 64, 4),
+                         (64, 64, 1), (64, 32, 1), (32, 64, 1)),
+                "hosvd": ((128, 32, 128), (128, 32, 256), (128, 32, 64),
+                          (256, 32, 256), (256, 32, 128), (128, 64, 256),
+                          (64, 32, 64), (32, 32, 256))}
 # Kernel 2's (bm, bn, splits) held bit-identical to the planner's and timed.
 FUSED_PLANS = {"rsvd": ((256, 32, 1), (256, 32, 2), (256, 32, 4), (128, 64, 1),
                         (128, 32, 1), (128, 32, 2), (64, 64, 1), (64, 32, 1),
@@ -621,7 +630,7 @@ def main() -> int:
                 check(torch.allclose(c, plain, rtol=1e-5, atol=1e-4),
                       f"shgemm {sname} {dt} terms={terms} disagrees with plain")
                 results[("shgemm", sname, dt, terms)] = err
-        bk = ops.heuristic_blocks(m, n, k)[2]
+        bk = ops.shgemm_plan(m, n, k)[2]
         for dist in k2.SKETCH_DISTS:
             for dt in (bf16, fp16):
                 kw = dict(dist=dist, omega_dtype=dt, row_offset=2 * bk,
@@ -706,25 +715,42 @@ def main() -> int:
               f"2's own Omega, bit for bit, for {list(k2.SKETCH_DISTS)} in bf16 "
               f"and fp16 (offsets ({2 * plan[2]}, 7))")
 
-    # Bit identity across kernel 2's (bm, bn, splits) sharing bk, each timed.
+    # Bit identity across each kernel's (bm, bn, splits) sharing bk, each
+    # timed: kernel 1 on a bf16 B, kernel 2 on its Gaussian Omega.
     for sname, (m, k, n) in shapes.items():
         a = a_by_shape[sname]
-        plan = ops.fused_plan(m, n, k)
-        want = ops.shgemm_fused(a, key, n)
-        times = {}
-        for bm, bn, splits in FUSED_PLANS[sname]:
-            n_pad = n + (-n) % bn
-            call = (lambda bm=bm, bn=bn, splits=splits, n_pad=n_pad:
-                    k2.shgemm_fused_pallas(a, key, n_pad, bm=bm, bn=bn, bk=plan[2],
-                                           splits=splits))
-            check(torch.equal(call()[:, :n], want),
-                  f"kernel 2 {sname} not bit-identical at {(bm, bn, splits)}")
-            times[(bm, bn, splits)] = (median_ms(torch, call), device_ms(torch, call))
-        print(f"[plans] kernel 2 {sname} {(m, k, n)} gaussian bf16, (bm, bn, "
-              f"splits) at bk {plan[2]}, all bit-identical to the planner's "
-              f"{plan}; CUDA-event ms / device ms (kernel + reduction): "
-              + "; ".join(f"{p} {t:.4f} / {fmt_ms(d)}" for p, (t, d) in times.items())
-              + f" [{card}]")
+        b = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        for label, planner, sweep, full in (
+                ("kernel 1", ops.shgemm_plan, SHGEMM_PLANS,
+                 lambda: ops.shgemm(a, b)),
+                ("kernel 2", ops.fused_plan, FUSED_PLANS,
+                 lambda: ops.shgemm_fused(a, key, n))):
+            plan = planner(m, n, k)
+            want = full()
+            times = {}
+            for bm, bn, splits in sweep[sname]:
+                n_pad = n + (-n) % bn
+                if label == "kernel 1":
+                    b_pad = ops._pad_to(b, plan[2], bn)
+                    call = (lambda bm=bm, bn=bn, splits=splits, b_pad=b_pad:
+                            k1.shgemm_pallas(a, b_pad, bm=bm, bn=bn, bk=plan[2],
+                                             splits=splits))
+                else:
+                    call = (lambda bm=bm, bn=bn, splits=splits, n_pad=n_pad:
+                            k2.shgemm_fused_pallas(a, key, n_pad, bm=bm, bn=bn,
+                                                   bk=plan[2], splits=splits))
+                check(torch.equal(call()[:, :n], want),
+                      f"{label} {sname} not bit-identical at {(bm, bn, splits)}")
+                times[(bm, bn, splits)] = (median_ms(torch, call),
+                                           device_ms(torch, call))
+            best = min(times, key=lambda p: times[p][1] or times[p][0])
+            print(f"[plans] {label} {sname} {(m, k, n)} "
+                  f"{'bf16 B' if label == 'kernel 1' else 'gaussian bf16'}, "
+                  f"(bm, bn, splits) at bk {plan[2]}, all bit-identical to the "
+                  f"planner's {plan}; CUDA-event ms / device ms (kernel + "
+                  f"reduction): "
+                  + "; ".join(f"{p} {t:.4f} / {fmt_ms(d)}" for p, (t, d) in times.items())
+                  + f"; least device time {best} [{card}]")
 
     # f64-oracle accuracy ladder (reference DESIGN.md §2).
     b32 = torch.randn((k, n), generator=gen, device=dev)
@@ -749,75 +775,77 @@ def main() -> int:
           f"ranks={PAPER_HOSVD.ranks}; A is {PAPER_RSVD.n ** 2 * 4 / 2**20:.0f} MiB "
           f"and the tensor {math.prod(PAPER_HOSVD.dims) * 4 / 2**20:.0f} MiB")
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
-    k2.launches = 0
-    k2.reductions = 0
+    k1.launches = k1.reductions = 0
+    k2.launches = k2.reductions = 0
     errors = main_path.run_main_path(PAPER_RSVD, PAPER_HOSVD, device=dev)
     main_launches = {"shgemm": k1.launches, "shgemm_fused": k2.launches}
-    main_reductions = k2.reductions
+    main_reductions = {"shgemm": k1.reductions, "shgemm_fused": k2.reductions}
     for (algo, case, method), e in errors.items():
         print(f"[main] {algo} {case} {method}: rel. error {e:.4e}")
-    print(f"[main] launches {main_launches} (kernel 2 with the split-K "
+    print(f"[main] launches {main_launches} (of them with the split-K "
           f"reduction: {main_reductions}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     failures = main_path.check_errors(errors)
     check(not failures, "main path errors over the limits: " + "; ".join(failures))
-    check(all(v > 0 for v in main_launches.values()) and main_reductions > 0,
+    check(all(v > 0 for v in main_launches.values())
+          and all(v > 0 for v in main_reductions.values()),
           f"a kernel of the path was never launched: {main_launches}, "
           f"reductions {main_reductions}")
 
     # -- 4. timings --------------------------------------------------------
+    # Each kernel under its planner at rSVD's shape and RP-ST-HOSVD's three
+    # mode shapes (the first is RP-HOSVD's), beside its plain version, the
+    # f32 torch.matmul of the same product (library_ms, also by device
+    # time) and its bound.
     records = {}
-    for sname, (m, k, n) in shapes.items():
-        a = a_by_shape[sname]
-        bm, bn, bk = ops.heuristic_blocks(m, n, k)
-        b = torch.randn((k, n), generator=gen, device=dev).to(bf16)
-        b_pad = ops._pad_to(b, bk, bn)
-        b_f32 = b.float()
-        t_k = median_ms(torch, lambda: k1.shgemm_pallas(a, b_pad, bm=bm, bn=bn, bk=bk))
-        t_p = median_ms(torch, lambda: k1.shgemm_plain(a, b, 2))
-        t_l = median_ms(torch, lambda: torch.matmul(a, b_f32))
-        t_b, by = bound_ms(m, k, n, 2, k * n * 2)
-        print(f"[time] shgemm {sname} ({m}x{k} @ {k}x{n}, bf16, 2 terms, "
-              f"blocks {(bm, bn, bk)}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"f32 matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by}); "
-              f"kernel/bound {t_k / t_b:.2f}x [{card}]")
-        records[("shgemm", sname)] = (t_k, t_p, t_l, t_b, by)
-
-    # Kernel 2 under its planner at rSVD's shape and RP-ST-HOSVD's three
-    # mode shapes (the first is RP-HOSVD's).
-    fused_shapes = {"rsvd": RSVD_SHAPE, "hosvd": STHOSVD_SHAPES[0]}
-    fused_shapes.update({f"sthosvd_k{k}": (m, k, n) for m, k, n in STHOSVD_SHAPES[1:]})
-    per_shape = []
-    for sname, (m, k, n) in fused_shapes.items():
+    per_shape = {"shgemm": [], "shgemm_fused": []}
+    timed_shapes = {"rsvd": RSVD_SHAPE, "hosvd": STHOSVD_SHAPES[0]}
+    timed_shapes.update({f"sthosvd_k{k}": (m, k, n) for m, k, n in STHOSVD_SHAPES[1:]})
+    for sname, (m, k, n) in timed_shapes.items():
         a = a_by_shape.get(sname)
         a = operand_a(m, k) if a is None else a
-        bm, bn, bk, splits = ops.fused_plan(m, n, k)
-        a_pad = ops._pad_to(a, bm, bk)
-        n_pad = n + (-n) % bn
-        wbytes = k2.workspace_bytes(a_pad.shape[0], n_pad, a_pad.shape[1], bk, splits)
+        b = torch.randn((k, n), generator=gen, device=dev).to(bf16)
         omega32 = proj.fused_omega(key, (k, n), device=dev).float()
-        kern = (lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm, bn=bn,
-                                               bk=bk, splits=splits))
-        t_k = median_ms(torch, kern)
-        t_d = device_ms(torch, kern)
-        t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, key, n))
-        t_l = median_ms(torch, lambda: torch.matmul(a, omega32))
-        t_b, by = bound_ms(m, k, n, 2, 0)
-        print(f"[time] shgemm_fused {sname} ({m}x{k} @ {k}x{n}, bf16 gaussian, 2 "
-              f"terms, fused_plan (bm, bn, bk, splits) {(bm, bn, bk, splits)}, "
-              f"grid {(n_pad // bn, a_pad.shape[0] // bm, splits)}, workspace "
-              f"{wbytes} B): kernel {t_k:.4f} ms (device {fmt_ms(t_d)} ms), plain "
-              f"{t_p:.4f} ms, f32 matmul "
-              f"{t_l:.4f} ms, bound {t_b:.4f} ms ({by}); kernel/bound "
-              f"{t_k / t_b:.2f}x [{card}]")
-        records[("shgemm_fused", sname)] = (t_k, t_p, t_l, t_b, by)
-        per_shape.append({"shape": [m, k, n], "plan": [bm, bn, bk, splits],
-                          "workspace_bytes": wbytes, "ms": t_k, "device_ms": t_d,
-                          "plain_ms": t_p,
-                          "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
-                          "max_abs_err": results.get(("shgemm_fused", sname, bf16,
-                                                      "gaussian"))})
+        for name, planner, omega_bytes in (("shgemm", ops.shgemm_plan, k * n * 2),
+                                           ("shgemm_fused", ops.fused_plan, 0)):
+            bm, bn, bk, splits = planner(m, n, k)
+            a_pad = ops._pad_to(a, bm, bk)
+            n_pad = n + (-n) % bn
+            wbytes = k1.workspace_bytes(a_pad.shape[0], n_pad, a_pad.shape[1], bk,
+                                        splits)
+            if name == "shgemm":
+                b_pad = ops._pad_to(b, bk, bn)
+                b_f32 = b.float()
+                kern = (lambda: k1.shgemm_pallas(a_pad, b_pad, bm=bm, bn=bn, bk=bk,
+                                                 splits=splits))
+                plain = (lambda: k1.shgemm_plain(a, b, 2))
+                lib = (lambda: torch.matmul(a, b_f32))
+                what = "bf16 B"
+            else:
+                kern = (lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm,
+                                                       bn=bn, bk=bk, splits=splits))
+                plain = (lambda: k2.shgemm_fused_plain(a, key, n))
+                lib = (lambda: torch.matmul(a, omega32))
+                what = "bf16 gaussian"
+            t_k, t_d = median_ms(torch, kern), device_ms(torch, kern)
+            t_p = median_ms(torch, plain)
+            t_l, t_ld = median_ms(torch, lib), device_ms(torch, lib)
+            t_b, by = bound_ms(m, k, n, 2, omega_bytes)
+            print(f"[time] {name} {sname} ({m}x{k} @ {k}x{n}, {what}, 2 terms, "
+                  f"plan (bm, bn, bk, splits) {(bm, bn, bk, splits)}, grid "
+                  f"{(n_pad // bn, a_pad.shape[0] // bm, splits)}, workspace "
+                  f"{wbytes} B): kernel {t_k:.4f} ms (device {fmt_ms(t_d)} ms), "
+                  f"plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
+                  f"{fmt_ms(t_ld)} ms), bound {t_b:.4f} ms ({by}); kernel/bound "
+                  f"{t_k / t_b:.2f}x [{card}]")
+            records[(name, sname)] = (t_k, t_p, t_l, t_b, by)
+            err = (results.get(("shgemm", sname, bf16, 2)) if name == "shgemm"
+                   else results.get(("shgemm_fused", sname, bf16, "gaussian")))
+            per_shape[name].append({
+                "shape": [m, k, n], "plan": [bm, bn, bk, splits],
+                "workspace_bytes": wbytes, "ms": t_k, "device_ms": t_d,
+                "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                "library_ms": t_l, "library_device_ms": t_ld, "max_abs_err": err})
         del omega32
 
     a_exp = main_path.rsvd_inputs(PAPER_RSVD, device=dev)["exp"]
@@ -895,8 +923,9 @@ def main() -> int:
                         "max_abs_err": results[errkey], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                         "library_ms": t_l})
-    kernels[-1]["reductions"] = main_reductions
-    kernels[-1]["per_shape"] = per_shape
+    for rec in kernels:
+        rec["reductions"] = main_reductions[rec["name"]]
+        rec["per_shape"] = per_shape[rec["name"]]
     for name, replaces, launches, err in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:38",
              prefill["launches"], errs5[("flash", "prefill")]),

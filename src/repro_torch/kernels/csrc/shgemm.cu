@@ -5,76 +5,110 @@
 //
 // What bounds it on an H100: bytes.  At the rSVD shape (4096x4096 @ 4096x266,
 // 2 terms) it must move ~70.6 MB (A 64 MB dominates) against ~17.9 GFLOP of
-// bf16 tensor-core work, ~21 us vs ~18 us at the data-sheet peaks.  The
-// design keeps A's bytes to one pass per output-column tile: blockIdx.x runs
-// over N, so the few blocks sharing an A row panel are co-resident and meet
-// in L2; the hi/lo split happens in registers, costing no device-memory
-// bytes; the next stage's global loads are issued before the current stage's
-// MMAs.  No split-K: shapes with few output tiles (RP-HOSVD's 256 x 32) fill
-// few SMs.
-#include "shgemm_common.cuh"
+// bf16 tensor-core work, ~21 us vs ~18 us at the data-sheet peaks; at
+// RP-HOSVD's 256 x 65536 @ . x 32, 71.3 MB (A 64 MB, B 4 MB) against 2.1
+// GFLOP.  The design is kernel 2's main loop (shgemm_splitk.cuh) with a B
+// producer that reads B from device memory:
+//  - split-K: the grid's third axis cuts K into runs of whole bk tiles, so
+//    RP-HOSVD's one 256 x 32 output tile fills the card, and a fixed-order
+//    reduction keeps the bits a function of bk alone (equal to kernel 2's on
+//    the same B);
+//  - A through the loop's ring of cp.async stages; the hi/lo split happens
+//    in registers, costing no device-memory bytes;
+//  - B route: LoadB reads stage s + 1 into registers (`fetch`, 16 bytes a
+//    thread) before stage s's MMAs and writes it transposed into the
+//    loop's second B buffer (`store`) after them.  The transposed (n, k)
+//    stage keeps the loop's B fragment reads -- one 32-bit load each,
+//    shared with kernel 2 -- unchanged; a row-major stage would need
+//    ldmatrix.trans or two 16-bit loads a fragment word there.  A thread
+//    reads one 8-column run of one k row, and the 32 lanes of a warp take
+//    32 consecutive k rows, so the eight 16-bit transposed stores of a run
+//    fall on 16 distinct banks (two lanes to a word): conflict-free.
+#include "shgemm_splitk.cuh"
 
 namespace {
 
-// B (K, N) row-major 16-bit -> transposed (BN, BKS) shared stage.
+// B (K, N) row-major 16-bit -> the transposed (BN, BKS) shared stage.
 template <int BM, int BN>
 struct LoadB {
   static constexpr int NT = shg::Tile<BM, BN>::THREADS;
   static constexpr int VECS = shg::BKS * BN / 8;  // uint4 per stage
-  static_assert(VECS % NT == 0, "B stage must split evenly");
-  static constexpr int PER = VECS / NT;
+  static constexpr int PER = (VECS + NT - 1) / NT;
+  static_assert(VECS % NT == 0 || NT % VECS == 0, "B stage must split evenly");
+  static constexpr int SMEM_WORDS = 0;
   const uint16_t* B;
   int N, n0;
   uint4 reg[PER];
+
+  __device__ __forceinline__ void init(uint32_t*) {}
 
   __device__ __forceinline__ void fetch(int k0) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int idx = threadIdx.x + j * NT;
-      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-      reg[j] = *reinterpret_cast<const uint4*>(
-          B + static_cast<size_t>(k0 + r) * N + n0 + c);
+      if (VECS >= NT || idx < VECS) {
+        const int r = idx % shg::BKS, c = (idx / shg::BKS) * 8;
+        reg[j] = *reinterpret_cast<const uint4*>(
+            B + static_cast<size_t>(k0 + r) * N + n0 + c);
+      }
     }
   }
+
   __device__ __forceinline__ void store(uint16_t* Bs, int) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int idx = threadIdx.x + j * NT;
-      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-      const uint16_t* h = reinterpret_cast<const uint16_t*>(&reg[j]);
+      if (VECS >= NT || idx < VECS) {
+        const int r = idx % shg::BKS, c = (idx / shg::BKS) * 8;
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(&reg[j]);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Bs[(c + e) * shg::B_STRIDE + r] = h[e];
+        for (int e = 0; e < 8; ++e) Bs[(c + e) * shg::B_STRIDE + r] = h[e];
+      }
     }
   }
 };
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, int TERMS>
 __global__ void __launch_bounds__(shg::Tile<BM, BN>::THREADS)
-    shgemm_kernel(const float* __restrict__ A, const uint16_t* __restrict__ B,
-                  float* __restrict__ C, int N, int K, int bk, int terms) {
-  LoadB<BM, BN> prod{B, N, static_cast<int>(blockIdx.x) * BN};
-  shg::shgemm_mainloop<T, BM, BN>(A, C, N, K, bk, terms, prod);
+    shgemm_kernel(const float* __restrict__ A, float* __restrict__ out, int M,
+                  int N, int K, int bk, const uint16_t* __restrict__ B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  LoadB<BM, BN> prod{B, N, static_cast<int>(blockIdx.x) * BN, {}};
+  shg::splitk_mainloop<T, BM, BN, TERMS>(A, out, M, N, K, bk, prod, smem);
 }
+
+struct Launch {
+  const float* A;
+  const uint16_t* B;
+  float* C;
+  float* W;
+  int M, N, K, bk, splits;
+  cudaStream_t stream;
+
+  template <typename T, int BM, int BN, int TERMS>
+  int run() const {
+    return shg::launch_splitk<BM, BN>(shgemm_kernel<T, BM, BN, TERMS>,
+                                      shg::SplitKSmem<BM, BN>::BYTES, A, C, W,
+                                      M, N, K, bk, splits, stream, B);
+  }
+};
 
 }  // namespace
 
-#define SHG_LAUNCH(T, BM_, BN_)                                             \
-  shgemm_kernel<T, BM_, BN_>                                                \
-      <<<dim3(N / BN_, M / BM_), shg::Tile<BM_, BN_>::THREADS, 0, stream>>>( \
-          static_cast<const float*>(A), static_cast<const uint16_t*>(B),    \
-          static_cast<float*>(C), N, K, bk, terms)
-
-// Launches on `stream` of device `device`, does not synchronise, allocates
-// nothing.  Returns cudaGetLastError() (0 on success).
-extern "C" int shgemm_launch(const void* A, const void* B, void* C, int M,
-                             int N, int K, int bm, int bn, int bk, int terms,
-                             int b_fp16, void* stream_ptr, int device) {
+// splits > 1 needs the workspace W of (K / bk) * M * N floats; W is unused
+// with splits == 1.  Launches on `stream` of device `device`, does not
+// synchronise, allocates nothing.  Returns the first CUDA error (0 on
+// success).
+extern "C" int shgemm_launch(const void* A, const void* B, void* C, void* W,
+                             int M, int N, int K, int bm, int bn, int bk,
+                             int splits, int terms, int b_fp16,
+                             void* stream_ptr, int device) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (terms < 1 || terms > 3 || (terms == 3 && b_fp16) || bk % shg::BKS ||
-      M % bm || N % bn || K % bk)
+  if (!shg::valid_plan(M, N, K, bm, bn, bk, splits, terms, b_fp16, W))
     return static_cast<int>(cudaErrorInvalidValue);
-  SHG_DISPATCH(bm, bn, b_fp16, SHG_LAUNCH);
-  return static_cast<int>(cudaGetLastError());
+  const Launch launch{static_cast<const float*>(A), static_cast<const uint16_t*>(B),
+                      static_cast<float*>(C), static_cast<float*>(W), M, N, K, bk,
+                      splits, static_cast<cudaStream_t>(stream_ptr)};
+  return shg::dispatch(bm, bn, b_fp16, terms, launch);
 }

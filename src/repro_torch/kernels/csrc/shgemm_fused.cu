@@ -69,6 +69,8 @@ struct GenOmega {
     hc = table;
   }
 
+  __device__ __forceinline__ void fetch(int) {}  // nothing to read
+
   __device__ __forceinline__ void store(uint16_t* Bs, int kbase) {
     const int k = threadIdx.x % shg::BKS;
     const uint32_t hr =
@@ -95,7 +97,7 @@ __global__ void __launch_bounds__(shg::Tile<BM, BN>::THREADS)
   shg::splitk_mainloop<T, BM, BN, TERMS>(A, out, M, N, K, bk, prod, smem);
 }
 
-struct Args {
+struct Launch {
   const float* A;
   float* C;
   float* W;
@@ -104,51 +106,17 @@ struct Args {
   int dist, store_kind;
   float thr1, thr2;
   cudaStream_t stream;
-};
 
-template <typename T, int BM, int BN, int TERMS>
-int launch(const Args& a) {
-  auto kernel = shgemm_fused_kernel<T, BM, BN, TERMS>;
-  constexpr int smem = shg::SplitKSmem<BM, BN>::BYTES +
-                       GenOmega<T, BM, BN>::SMEM_WORDS * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(a.N / BN, a.M / BM, a.splits), shg::Tile<BM, BN>::THREADS, smem,
-           a.stream>>>(a.A, a.splits == 1 ? a.C : a.W, a.M, a.N, a.K, a.bk,
-                       a.k0, a.k1, a.row_offset, a.col_offset, a.dist,
-                       a.store_kind, a.thr1, a.thr2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(a.M) * a.N;
-  shg::splitk_reduce<<<static_cast<unsigned>((mn + shg::REDUCE_THREADS - 1) /
-                                             shg::REDUCE_THREADS),
-                       shg::REDUCE_THREADS, 0, a.stream>>>(a.W, a.C, mn,
-                                                           a.K / a.bk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int BM, int BN>
-int launch_terms(const Args& a, int terms) {
-  if (terms == 1) return launch<T, BM, BN, 1>(a);
-  if (terms == 2) return launch<T, BM, BN, 2>(a);
-  if constexpr (!std::is_same<T, __half>::value) {
-    if (terms == 3) return launch<T, BM, BN, 3>(a);
+  template <typename T, int BM, int BN, int TERMS>
+  int run() const {
+    constexpr int smem = shg::SplitKSmem<BM, BN>::BYTES +
+                         GenOmega<T, BM, BN>::SMEM_WORDS * 4;
+    return shg::launch_splitk<BM, BN>(
+        shgemm_fused_kernel<T, BM, BN, TERMS>, smem, A, C, W, M, N, K, bk,
+        splits, stream, k0, k1, row_offset, col_offset, dist, store_kind, thr1,
+        thr2);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T>
-int launch_tile(const Args& a, int bm, int bn, int terms) {
-  if (bm == 256 && bn == 32) return launch_terms<T, 256, 32>(a, terms);
-  if (bm == 128 && bn == 64) return launch_terms<T, 128, 64>(a, terms);
-  if (bm == 128 && bn == 32) return launch_terms<T, 128, 32>(a, terms);
-  if (bm == 64 && bn == 64) return launch_terms<T, 64, 64>(a, terms);
-  if (bm == 64 && bn == 32) return launch_terms<T, 64, 32>(a, terms);
-  if (bm == 32 && bn == 64) return launch_terms<T, 32, 64>(a, terms);
-  if (bm == 32 && bn == 32) return launch_terms<T, 32, 32>(a, terms);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+};
 
 }  // namespace
 
@@ -167,16 +135,13 @@ extern "C" int shgemm_fused_launch(const void* A, void* C, void* W, int M,
                                    void* stream_ptr, int device) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (terms < 1 || terms > 3 || (terms == 3 && lowp_fp16) || bk <= 0 ||
-      bk % shg::BKS || bm <= 0 || bn <= 0 || M % bm || N % bn || K % bk ||
-      splits < 1 || splits > 65535 || (K / bk) % splits ||
-      (splits > 1 && W == nullptr) || dist < 0 || dist > 1 || store_kind < 0 ||
-      store_kind > 2 || (store_kind != kStoreLowp && lowp_fp16))
+  if (!shg::valid_plan(M, N, K, bm, bn, bk, splits, terms, lowp_fp16, W) ||
+      dist < 0 || dist > 1 || store_kind < 0 || store_kind > 2 ||
+      (store_kind != kStoreLowp && lowp_fp16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(A), static_cast<float*>(C),
-               static_cast<float*>(W), M, N, K, bk, splits, k0, k1,
-               row_offset, col_offset, dist, store_kind, thr1, thr2,
-               static_cast<cudaStream_t>(stream_ptr)};
-  return lowp_fp16 ? launch_tile<__half>(a, bm, bn, terms)
-                   : launch_tile<__nv_bfloat16>(a, bm, bn, terms);
+  const Launch launch{static_cast<const float*>(A), static_cast<float*>(C),
+                      static_cast<float*>(W), M, N, K, bk, splits, k0, k1,
+                      row_offset, col_offset, dist, store_kind, thr1, thr2,
+                      static_cast<cudaStream_t>(stream_ptr)};
+  return shg::dispatch(bm, bn, lowp_fp16, terms, launch);
 }

@@ -1,27 +1,90 @@
-// Split-K main loop of the split-precision GEMM: out = A_f32[M, K] @
-// B_lowp[K, N] with B produced stage by stage into shared memory.
+// Split-K main loop of the split-precision GEMM shared by kernel 1
+// (shgemm.cu, B read from device memory) and kernel 2 (shgemm_fused.cu, B
+// hashed on chip): out = A_f32[M, K] @ B_lowp[K, N], B in bf16 or fp16,
+// produced stage by stage into shared memory.
+//
+// Numerics.  A stage is BKS = 32 deep: the f32 A tile and the 16-bit B tile
+// sit in shared memory, B transposed to (n, k) so a B fragment is one 32-bit
+// load.  A fragments are split in registers into `TERMS` low-precision parts
+// (paper Eq. 37-38; fp16 scales the residual by 2^11 and the correction
+// product by 2^-11), one mma.sync m16n8k16 per term, each term into its own
+// f32 partial, so the tensor cores' own accumulation is confined to one bk
+// tile (the Pallas body `acc = 0; acc += term; acc_ref += acc`).
 //
 // The grid is (N / BN, M / BM, S).  Split z owns the contiguous run of
-// K / bk / S whole bk tiles starting at tile z * K / bk / S.  Within a tile
-// the k16 MMAs run in the order of shgemm_common.cuh, into one f32 partial
-// per term, and at the tile's end they are summed T_j = (P0 + P1 s) + P2.
-// With S = 1 the block adds T_j into its accumulator, acc = ((0 + T_0) +
-// T_1) + ..., and writes C; with S > 1 it writes T_j to the workspace
-// W[j, M, N] and splitk_reduce sums W in j order from 0.  Either way every
-// output element is the same chain of RN f32 adds over the same T_j, so the
-// bits depend on bk alone, never on BM, BN or S, and equal kernel 1's.
+// K / bk / S whole bk tiles starting at tile z * K / bk / S.  At each tile's
+// end the partials are summed T_j = (P0 + P1 s) + P2.  With S = 1 the block
+// adds T_j into its accumulator, acc = ((0 + T_0) + T_1) + ..., and writes
+// C; with S > 1 it writes T_j to the workspace W[j, M, N] and splitk_reduce
+// sums W in j order from 0.  Either way every output element is the same
+// chain of RN f32 adds over the same T_j, so the bits depend on bk alone,
+// never on BM, BN or S, and kernels 1 and 2 agree bit for bit on one B.
 //
-// Each warp owns a 32x32 sub-tile as in shgemm_common.cuh, and the block
+// Each warp owns a 32x32 sub-tile (2 x 4 MMA tiles), and the block
 // (Tile<BM, BN>::THREADS threads) shares one B stage: at BM = 256, BN = 32
-// eight warps stacked along M consume each B element generated once.
+// eight warps stacked along M consume each B element produced once.
 //
 // The caller guarantees M % BM == 0, N % BN == 0, K % bk == 0,
-// bk % BKS == 0, (K / bk) % S == 0, 16-byte-aligned A, and contiguous
-// row-major layouts.
+// bk % BKS == 0, (K / bk) % S == 0, 16-byte-aligned A (and B), and
+// contiguous row-major layouts (`valid_plan` checks the numbers).
 #pragma once
-#include "shgemm_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace shg {
+
+constexpr int BKS = 32;            // K depth of one shared-memory stage
+constexpr int A_STRIDE = BKS + 8;  // floats; conflict-free float2 reads
+constexpr int B_STRIDE = BKS + 8;  // 16-bit words; conflict-free 32-bit reads
+
+template <typename T>
+struct LowP;
+
+template <>
+struct LowP<__nv_bfloat16> {
+  static __device__ __forceinline__ uint16_t round(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ float widen(uint16_t h) {
+    return __bfloat162float(__ushort_as_bfloat16(h));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <>
+struct LowP<__half> {
+  static __device__ __forceinline__ uint16_t round(float x) {
+    return __half_as_ushort(__float2half_rn(x));
+  }
+  static __device__ __forceinline__ float widen(uint16_t h) {
+    return __half2float(__ushort_as_half(h));
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int THREADS = BM * BN / 32;  // one warp per 32x32
+  static constexpr int WARPS_N = BN / 32;
+};
 
 // A stages in flight: the ring holds RING stages, RING - 1 of them loading
 // while one is consumed.
@@ -55,9 +118,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // `Producer` fills the (BN, BKS) transposed B stage:
 //   prod.init(table) -- once per block, before the first stage (the loop
 //                       synchronises the block after it);
-//   prod.store(Bs, k0) -- write the stage at global K index k0.  Stage s + 1
-//                       is written while stage s is consumed, into the other
-//                       of the two B buffers.
+//   prod.fetch(k0)   -- start reading the stage at global K index k0 (into
+//                       registers; a no-op for a producer that computes B).
+//                       Stage s + 1 is fetched before stage s's MMAs, so the
+//                       loads fly while they run;
+//   prod.store(Bs, k0) -- write the stage at k0, fetched before.  Stage
+//                       s + 1 is written after stage s's MMAs, into the
+//                       other of the two B buffers.
 template <typename T, int BM, int BN, int TERMS, class Producer>
 __device__ __forceinline__ void splitk_mainloop(const float* __restrict__ A,
                                                 float* __restrict__ out, int M,
@@ -121,6 +188,7 @@ __device__ __forceinline__ void splitk_mainloop(const float* __restrict__ A,
     if (s < nstages) load_a(s);
     cp_async_commit();
   }
+  prod.fetch(kbeg);
   prod.store(Bs, kbeg);
   for (int s = 0; s < nstages; ++s) {
     // One barrier a stage: this thread's copies of stage s have landed
@@ -134,6 +202,7 @@ __device__ __forceinline__ void splitk_mainloop(const float* __restrict__ A,
     const uint16_t* bs = Bs + (s & 1) * B_HALVES;
     if (s + RING - 1 < nstages) load_a(s + RING - 1);
     cp_async_commit();
+    if (s + 1 < nstages) prod.fetch(k0 + BKS);
     if (s % per_tile == 0) {
 #pragma unroll
       for (int t = 0; t < TERMS; ++t)
@@ -178,8 +247,8 @@ __device__ __forceinline__ void splitk_mainloop(const float* __restrict__ A,
         }
       }
     }
-    // The next Omega stage: this warp's ALU work overlaps the other warps'
-    // MMAs of this stage.
+    // The next B stage: this warp's stores (or ALU work) overlap the other
+    // warps' MMAs of this stage.
     if (s + 1 < nstages) prod.store(Bs + ((s + 1) & 1) * B_HALVES, k0 + BKS);
     if ((s + 1) % per_tile == 0) {  // bk boundary: T_j, fixed order
       float* wj = out + static_cast<size_t>(tile0 + s / per_tile) * M * N;
@@ -245,6 +314,68 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   }
   for (; j < J; ++j) acc = acc + __ldcg(p + j * mn);
   C[i] = acc;
+}
+
+// Whether (bm, bn, bk, splits, terms) is a launchable plan for the launch
+// shape (M, N, K); W is needed with more than one split.
+inline bool valid_plan(int M, int N, int K, int bm, int bn, int bk, int splits,
+                       int terms, int fp16, const void* W) {
+  return terms >= 1 && terms <= 3 && !(terms == 3 && fp16) && bk > 0 &&
+         bk % BKS == 0 && bm > 0 && bn > 0 && M % bm == 0 && N % bn == 0 &&
+         K % bk == 0 && splits >= 1 && splits <= 65535 &&
+         (K / bk) % splits == 0 && (splits == 1 || W != nullptr);
+}
+
+// Launches `kernel(A, out, M, N, K, bk, extra...)` on the (N / BN, M / BM,
+// splits) grid with `smem` bytes of dynamic shared memory, out = C with one
+// split and the workspace W (K / bk tiles of M x N floats) with more, then
+// splitk_reduce W -> C.  Returns the first CUDA error (0 on success).
+template <int BM, int BN, typename... P, typename... X>
+int launch_splitk(void (*kernel)(const float*, float*, int, int, int, int, P...),
+                  int smem, const float* A, float* C, float* W, int M, int N,
+                  int K, int bk, int splits, cudaStream_t stream, X... extra) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(N / BN, M / BM, splits), Tile<BM, BN>::THREADS, smem, stream>>>(
+      A, splits == 1 ? C : W, M, N, K, bk, extra...);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long mn = static_cast<long long>(M) * N;
+  splitk_reduce<<<static_cast<unsigned>((mn + REDUCE_THREADS - 1) / REDUCE_THREADS),
+                  REDUCE_THREADS, 0, stream>>>(W, C, mn, K / bk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f.template run<T, BM, BN, TERMS>() for the runtime tile (bm, bn),
+// 16-bit type and term count.  The tiles are the Python side's TILES
+// (kernels/shgemm.py); terms 1-3 for bf16, 1-2 for fp16.
+template <typename T, int BM, int BN, class F>
+int dispatch_terms(int terms, const F& f) {
+  if (terms == 1) return f.template run<T, BM, BN, 1>();
+  if (terms == 2) return f.template run<T, BM, BN, 2>();
+  if constexpr (!std::is_same<T, __half>::value) {
+    if (terms == 3) return f.template run<T, BM, BN, 3>();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, class F>
+int dispatch_tile(int bm, int bn, int terms, const F& f) {
+  if (bm == 256 && bn == 32) return dispatch_terms<T, 256, 32>(terms, f);
+  if (bm == 128 && bn == 64) return dispatch_terms<T, 128, 64>(terms, f);
+  if (bm == 128 && bn == 32) return dispatch_terms<T, 128, 32>(terms, f);
+  if (bm == 64 && bn == 64) return dispatch_terms<T, 64, 64>(terms, f);
+  if (bm == 64 && bn == 32) return dispatch_terms<T, 64, 32>(terms, f);
+  if (bm == 32 && bn == 64) return dispatch_terms<T, 32, 64>(terms, f);
+  if (bm == 32 && bn == 32) return dispatch_terms<T, 32, 32>(terms, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class F>
+int dispatch(int bm, int bn, int fp16, int terms, const F& f) {
+  return fp16 ? dispatch_tile<__half>(bm, bn, terms, f)
+              : dispatch_tile<__nv_bfloat16>(bm, bn, terms, f);
 }
 
 }  // namespace shg

@@ -10,10 +10,10 @@ calls under ``cfg.use_flash_kernel``; both kernels mask their ragged edges
 themselves, so nothing here pads them.  Both run on the card unless the caller
 passes ``device="cpu"``, where the kernels' plain versions run.
 
-Kernel 1's blocks come from ``heuristic_blocks`` (the port's copy of the
-reference's shrink-to-fit heuristic, with this card's defaults) and kernel
-2's blocks and split count from ``fused_plan``, unless ``blocks=`` is given.
-The autotuner is not ported yet.
+Kernel 1's blocks and split-K count come from ``shgemm_plan`` and kernel
+2's from ``fused_plan``, unless ``blocks=`` / ``splits=`` are given; both
+kernels run one main loop, so both planners share the tiles, ``bk`` and
+the split count's rule (``plan_splits``).  The autotuner is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import shgemm as _k
 from repro_torch.kernels import shgemm_fused as _kf
 
-# Streaming multiprocessors of an H100 SXM: the heuristic shrinks bm until
-# the output grid has at least this many blocks (or bm reaches 32).
+# Streaming multiprocessors of an H100 SXM.
 SM_COUNT = 132
 
 
@@ -37,60 +36,92 @@ def _round_up(x: int, align: int) -> int:
     return ((x + align - 1) // align) * align
 
 
-def heuristic_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """Default blocks shrunk to small problems: the smallest supported bm/bn
-    that covers the dim, bk rounded up to the 32-deep stage; then bm halves
-    while the grid has fewer blocks than the card has SMs."""
-    bm = next((b for b in _k.SUPPORTED_BM if b >= m), _k.DEFAULT_BM)
-    bn = next((b for b in _k.SUPPORTED_BN if b >= n), _k.DEFAULT_BN)
-    bk = min(_k.DEFAULT_BK, _round_up(max(k, 1), _k.STAGE_K))
-    while bm > _k.SUPPORTED_BM[0] and (-(-m // bm)) * (-(-n // bn)) < SM_COUNT:
-        bm //= 2
-    return bm, bn, bk
-
-
-# Kernel 2's split count: the least share of the waves its grid occupies
-# that the blocks must fill (one block an SM, as the 256-row tile's shared
-# memory allows), and the most workspace a split may take.
+# The split count: the least share of the waves its grid occupies that the
+# blocks must fill, and the most workspace a split may take.
 WAVE_FILL = 0.8
 MAX_WORKSPACE_BYTES = 1 << 30
 
+# What one SM holds (H100): 64 K registers, 228 KB of shared memory with
+# 1 KB reserved per block, 64 warps.  Kernel 1's two-term instantiations
+# take 165-170 registers a thread at 128 x 32 and 256 x 32 (nvcc -Xptxas -v
+# on the H100, chip_smoke.py's [setup] lines).
+SM_REGISTERS = 65536
+SM_SMEM_BYTES = 233472
+BLOCK_SMEM_RESERVED = 1024
+SHGEMM_REGISTERS = 168
 
-def fused_splits(m: int, n: int, k: int,
-                 blocks: tuple[int, int, int]) -> int:
-    """Kernel 2's split count for ``blocks``: the smallest divisor of the
-    ``k / bk`` tiles whose grid has at least ``SM_COUNT`` blocks filling at
-    least ``WAVE_FILL`` of the waves they occupy (so no nearly empty last
-    wave doubles the time), or the largest divisor where none does; 1 where
-    the workspace would pass ``MAX_WORKSPACE_BYTES``."""
+
+def resident_blocks(bm: int, bn: int, smem: int, registers: int) -> int:
+    """Blocks of a (bm, bn) tile that one SM holds at once: the least of
+    what its registers (allocated per warp in units of 256), its shared
+    memory and its 64 warps allow, and at least 1."""
+    warps = bm * bn // 32 // 32
+    by_regs = SM_REGISTERS // (warps * _round_up(registers * 32, 256))
+    by_smem = SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED)
+    return max(1, min(by_regs, by_smem, 64 // warps))
+
+
+def plan_splits(m: int, n: int, k: int, blocks: tuple[int, int, int],
+                per_sm: int = 1) -> int:
+    """The split-K count of kernels 1 and 2 for ``blocks``, of which an SM
+    holds ``per_sm`` at once: the smallest divisor of the ``k / bk`` tiles
+    whose grid has at least ``SM_COUNT`` blocks and either fits on the card
+    at once or fills at least ``WAVE_FILL`` of the waves it occupies (so no
+    nearly empty last wave doubles the time), or the largest divisor where
+    none does; 1 where the workspace would pass ``MAX_WORKSPACE_BYTES``."""
     bm, bn, bk = blocks
     tiles = -(-k // bk)
     grid = -(-m // bm) * -(-n // bn)
-    if _kf.workspace_bytes(_round_up(m, bm), _round_up(n, bn), tiles * bk, bk,
-                           2) > MAX_WORKSPACE_BYTES:
+    slots = SM_COUNT * per_sm
+    if _k.workspace_bytes(_round_up(m, bm), _round_up(n, bn), tiles * bk, bk,
+                          2) > MAX_WORKSPACE_BYTES:
         return 1
 
     def fills(d: int) -> bool:
         nb = grid * d
-        return nb >= SM_COUNT and nb >= WAVE_FILL * SM_COUNT * -(-nb // SM_COUNT)
+        return nb >= SM_COUNT and (
+            nb <= slots or nb >= WAVE_FILL * slots * -(-nb // slots))
 
-    divisors = [d for d in range(1, min(tiles, _kf.MAX_SPLITS) + 1)
+    divisors = [d for d in range(1, min(tiles, _k.MAX_SPLITS) + 1)
                 if tiles % d == 0]
     return next((d for d in divisors if fills(d)), divisors[-1])
 
 
-def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
-    """Kernel 2's (bm, bn, bk, splits).  bm is the smallest row block that
-    covers m, up to 256: at 256 the eight warps of a block share each Omega
-    stage, so Omega is hashed once for every 256 rows of A.  bn is the
-    column block of that tile with the least padding of n (the larger on a
-    tie); bk is ``heuristic_blocks``'s, so the bits equal kernel 1's under
-    its default blocks; the split count is ``fused_splits``'s."""
-    bm = next((b for b in (32, 64, 128, 256) if b >= m), 256)
-    bn = min((b for b in _k.SUPPORTED_BN if (bm, b) in _kf.FUSED_TILES),
+def _plan_blocks(m: int, n: int, k: int,
+                 max_bm: int = 256) -> tuple[int, int, int]:
+    """(bm, bn, bk) of both planners.  bm is the smallest row block that
+    covers m, up to ``max_bm``; bn is the column block of that tile with
+    the least padding of n (the larger on a tie); bk is the reference's
+    256, or k rounded up to the 32-deep stage where that is less."""
+    bm = next((b for b in (32, 64, 128, 256) if b >= m or b == max_bm))
+    bn = min((b for b in (32, 64) if (bm, b) in _k.TILES),
              key=lambda b: (_round_up(n, b), -b))
     bk = min(_k.DEFAULT_BK, _round_up(max(k, 1), _k.STAGE_K))
-    return bm, bn, bk, fused_splits(m, n, k, (bm, bn, bk))
+    return bm, bn, bk
+
+
+def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """Kernel 1's (bm, bn, bk, splits).  Rows up to 128 a block: kernel 1
+    hashes nothing, so sharing a B stage among eight warps (256 rows) buys
+    less than the occupancy it costs -- three 128 x 32 blocks (12 warps) fit
+    an SM, one 256 x 32 block (8 warps).  On an H100 (700 W) 128 x 32 took
+    0.171 ms of device time at rSVD against 0.267-0.377 for 256 x 32 under
+    any split count, and 0.044 ms at RP-HOSVD against 0.050
+    (chip_smoke.py's ``[plans] kernel 1`` lines).  bk equals
+    ``fused_plan``'s, so kernels 1 and 2 give the same bits; the split
+    count is ``plan_splits``' for the blocks an SM holds."""
+    bm, bn, bk = _plan_blocks(m, n, k, max_bm=128)
+    per_sm = resident_blocks(bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS)
+    return bm, bn, bk, plan_splits(m, n, k, (bm, bn, bk), per_sm)
+
+
+def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+    """Kernel 2's (bm, bn, bk, splits).  Rows up to 256 a block: there the
+    eight warps of a block share each Omega stage, so Omega is hashed once
+    for every 256 rows of A, and one block fills an SM; the split count is
+    ``plan_splits``'."""
+    blocks = _plan_blocks(m, n, k)
+    return (*blocks, plan_splits(m, n, k, blocks))
 
 
 def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -102,10 +133,16 @@ def _pad_to(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
 
 
 def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
-           terms: int = 2, device=None) -> torch.Tensor:
+           splits: int | None = None, terms: int = 2,
+           device=None) -> torch.Tensor:
     """C_f32 = A_f32 @ B_lowp for arbitrary shapes.
 
     B may be bf16 or fp16; any other B is cast to bf16.  A is cast to f32.
+    ``blocks`` is the reference's ``(bm, bn, bk)``; without it the blocks
+    come from ``shgemm_plan``.  ``splits`` (port only) pins the split-K
+    count, which must divide the padded k's ``bk`` tiles; without it
+    ``plan_splits`` picks it for the blocks.  The result's bits depend on
+    ``bk`` alone.
     """
     dev = resolve_device(device)
     a = on_device(a, dev).to(torch.float32)
@@ -116,9 +153,16 @@ def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    bm, bn, bk = heuristic_blocks(m, n, k) if blocks is None else blocks
+    if blocks is None:
+        bm, bn, bk, planned = shgemm_plan(m, n, k)
+    else:
+        bm, bn, bk = blocks
+        _k.check_blocks(bm, bn, bk)
+        planned = plan_splits(m, n, k, blocks, resident_blocks(
+            bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS))
     c = _k.shgemm_pallas(_pad_to(a, bm, bk), _pad_to(b, bk, bn), bm=bm, bn=bn,
-                         bk=bk, terms=terms)
+                         bk=bk, splits=planned if splits is None else splits,
+                         terms=terms)
     return c[:m, :n]
 
 
@@ -153,7 +197,7 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
     ``blocks`` is the reference's ``(bm, bn, bk)``; without it the blocks
     come from ``fused_plan``.  ``splits`` (port only) pins the split-K count,
     which must divide the padded k's ``bk`` tiles; without it
-    ``fused_splits`` picks it for the blocks.  The result's bits depend on
+    ``plan_splits`` picks it for the blocks.  The result's bits depend on
     ``bk`` alone.
 
     A is zero-padded to block multiples: pad rows of A null the extra
@@ -183,7 +227,7 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
     else:
         bm, bn, bk = blocks
         _kf.check_blocks(bm, bn, bk)
-        planned = fused_splits(m, n, k, blocks)
+        planned = plan_splits(m, n, k, blocks)
     _validate_offset("row_offset", row_offset, bk)
     _validate_offset("col_offset", col_offset, 1)
     n_pad = n + (-n) % bn

@@ -54,11 +54,13 @@ _TWO_NEG_25 = float(2.0**-25)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _STORE_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
-# (bm, bn) instantiated in csrc/shgemm_fused.cu: kernel 1's tiles plus
-# 256 x 32, eight warps sharing one Omega stage.
-FUSED_TILES = ((256, 32), (128, 64), (128, 32), (64, 64), (64, 32), (32, 64),
-               (32, 32))
-MAX_SPLITS = 65535  # the grid's third dimension
+# Kernel 1's tiles, plan check and workspace: both kernels run the main loop
+# of csrc/shgemm_splitk.cuh.
+FUSED_TILES = _k.TILES
+MAX_SPLITS = _k.MAX_SPLITS
+check_blocks = _k.check_blocks
+check_plan = _k.check_plan
+workspace_bytes = _k.workspace_bytes
 
 # Kernel launches made by ``shgemm_fused_pallas`` in this process, and how
 # many of them also launched the split-K reduction.
@@ -172,44 +174,11 @@ def shgemm_fused_plain(a: torch.Tensor, words, n: int, *, terms: int = 2,
     return _k.shgemm_plain(a, omega.to(lowp_dtype), terms)
 
 
-def check_blocks(bm: int, bn: int, bk: int) -> None:
-    if (bm, bn) not in FUSED_TILES or bk <= 0 or bk % _k.STAGE_K:
-        raise ValueError(
-            f"blocks {(bm, bn, bk)} unsupported: (bm, bn) in {FUSED_TILES}, "
-            f"bk a positive multiple of {_k.STAGE_K}")
-
-
-def check_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
-               splits: int) -> None:
-    """Raise unless (bm, bn, bk, splits) is a launchable plan for the padded
-    launch shape (m, n, k)."""
-    check_blocks(bm, bn, bk)
-    if m % bm or n % bn or k % bk:
-        raise ValueError(f"shapes {(m, k, n)} not divisible by blocks "
-                         f"{(bm, bk, bn)}")
-    if (not isinstance(splits, (int, np.integer)) or isinstance(splits, bool)
-            or splits < 1 or splits > MAX_SPLITS or (k // bk) % splits):
-        raise ValueError(
-            f"splits={splits!r} must be an integer in [1, {MAX_SPLITS}] that "
-            f"divides the {k // bk} bk tiles of k={k} (bk={bk})")
-
-
-RING = 3  # A stages in flight (csrc/shgemm_splitk.cuh)
-
-
 def smem_bytes(bm: int, bn: int) -> int:
-    """Dynamic shared memory of one block of kernel 2 (``SplitKSmem`` plus
-    ``GenOmega``'s table in csrc/): the ring of f32 A stages and two 16-bit
-    Omega stages, each 32 deep and padded by 8 along K, and the block's
-    column hashes, two streams of bn words."""
-    return (RING * bm * (_k.STAGE_K + 8) * 4 + 2 * bn * (_k.STAGE_K + 8) * 2
-            + 2 * bn * 4)
-
-
-def workspace_bytes(m: int, n: int, k: int, bk: int, splits: int) -> int:
-    """Device memory of the split-K workspace W[k / bk, m, n] (f32) for the
-    padded launch shape; none with one split."""
-    return 0 if splits == 1 else (k // bk) * m * n * 4
+    """Dynamic shared memory of one block of kernel 2: kernel 1's
+    (``shgemm.smem_bytes``) and ``GenOmega``'s table of the block's column
+    hashes, two streams of bn words."""
+    return _k.smem_bytes(bm, bn) + 2 * bn * 4
 
 
 def _launcher():

@@ -102,6 +102,54 @@ def test_fused_bit_identical_across_plans(gen, dist, plan):
 HOSVD_LIKE = (256, 16384, 32)
 
 
+@pytest.mark.parametrize("lowp", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("plan", FUSED_PLANS[1:], ids=str)
+def test_shgemm_bit_identical_across_plans(gen, lowp, plan):
+    """Kernel 1 on the same loop: its bits depend on bk alone, not on bm,
+    bn or the split count, and the split path launches the reduction."""
+    a = _a(gen, 512, 2048)
+    b = torch.randn((2048, 64), generator=gen, device="cuda").to(lowp)
+    bm, bn, splits = plan
+    want = ops.shgemm(a, b, blocks=(256, 32, 128), splits=1)
+    before = k1.reductions
+    got = ops.shgemm(a, b, blocks=(bm, bn, 128), splits=splits)
+    assert k1.reductions == before + (splits > 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [HOSVD_LIKE, (300, 700, 130), (37, 5000, 70)],
+                         ids=str)
+@pytest.mark.parametrize("lowp,terms", LOWP_TERMS, ids=str)
+def test_shgemm_planned_matches_plain(gen, shape, lowp, terms):
+    """Under ``shgemm_plan`` (split-K at the HOSVD-like shape, padding at
+    the ragged ones) kernel 1 matches its plain version."""
+    m, k, n = shape
+    a = _a(gen, m, k)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(lowp)
+    before = k1.launches
+    got = ops.shgemm(a, b, terms=terms)
+    assert k1.launches == before + 1
+    if shape == HOSVD_LIKE:
+        assert ops.shgemm_plan(m, n, k)[3] > 1
+    torch.testing.assert_close(got, k1.shgemm_plain(a, b, terms), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"blocks": (256, 64, 256)}, "unsupported"),
+    ({"blocks": (256, 32, 100)}, "unsupported"),
+    ({"blocks": (256, 32, 256), "splits": 3}, "must be an integer"),
+    ({"splits": 0}, "must be an integer"),
+    ({"splits": 5}, "must be an integer"),
+])
+def test_shgemm_bad_plan_raises(gen, kw, match):
+    a = _a(gen, 256, 1024)
+    b = torch.ones((1024, 32), dtype=torch.bfloat16, device="cuda")
+    before = k1.launches
+    with pytest.raises(ValueError, match=match):
+        ops.shgemm(a, b, **kw)
+    assert k1.launches == before
+
+
 @pytest.mark.parametrize("dist", ["gaussian", "achlioptas", "very_sparse"])
 @pytest.mark.parametrize("omega_dtype", OMEGA_DTYPES, ids=str)
 def test_fused_equals_kernel1_on_chip_omega(gen, dist, omega_dtype):
@@ -174,6 +222,47 @@ def test_flash_kernel_matches_plain_f32(gen, s, causal):
     q, k, v = _qkv(gen, 1, s, 4, 2, 64, torch.float32)
     got = ops.flash_attention(q, k, v, causal=causal)
     want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 1000, 4096])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ring_edges_bf16(gen, s, g, hd, causal):
+    """The pipelined kernel against its plain version across sequence
+    lengths that are below, at and past one 64-key tile and the ring's
+    depth, every group size, both head sizes and both masks: the mask runs
+    only on diagonal and ragged-edge tiles, and the zero-filled copies past
+    S must add nothing."""
+    q, k, v = _qkv(gen, 1 if s == 4096 else 2, s, 8, 8 // g, hd, torch.bfloat16)
+    before = k3.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert k3.launches == before + 1
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 1000])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ring_edges_f32(gen, s, g, causal):
+    """f32 inputs run the same ring of f32 tiles with the hi/lo split:
+    f32 accuracy at the same edges."""
+    q, k, v = _qkv(gen, 2, s, 8, 8 // g, 128, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_kernel_negative_and_zero_scale(gen, scale):
+    """The kernel's exp2 softmax folds scale * log2(e) into one FMA, which
+    needs scale > 0; the wrapper negates q for a negative scale and zeroes
+    it for scale 0."""
+    q, k, v = _qkv(gen, 1, 200, 4, 2, 64, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=True, scale=scale)
+    want = k3.flash_attention_plain(q, k, v, causal=True, scale=scale)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 

@@ -204,7 +204,7 @@ def test_fused_plan_is_launchable(shape):
     k_pad = -(-k // bk) * bk
     kf.check_plan(-(-m // bm) * bm, -(-n // bn) * bn, k_pad, bm, bn, bk, splits)
     assert (k_pad // bk) % splits == 0
-    assert bk == ops.heuristic_blocks(m, n, k)[2]  # kernel 1's bk: equal bits
+    assert bk == ops.shgemm_plan(m, n, k)[2]  # kernel 1's bk: equal bits
     grid = -(-m // bm) * -(-n // bn)
     if grid * (k_pad // bk) >= ops.SM_COUNT:
         assert grid * splits >= ops.SM_COUNT

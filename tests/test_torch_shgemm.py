@@ -129,10 +129,109 @@ def test_kernel_wrapper_checks():
 
 @pytest.mark.parametrize("m,n,k", [(4096, 266, 4096), (256, 32, 65536), (20, 3, 5)])
 def test_heuristic_blocks_are_launchable(m, n, k):
-    bm, bn, bk = ops.heuristic_blocks(m, n, k)
-    k1.check_blocks(bm, bn, bk)
+    """The planner's plan (``ops.shgemm_plan``, which replaced the
+    shrink-to-fit heuristic) launches: a tile the kernel instantiates, bk
+    no deeper than k rounded to the stage, a split count dividing the bk
+    tiles, and dynamic shared memory within the 227 KB a block may use."""
+    bm, bn, bk, splits = ops.shgemm_plan(m, n, k)
+    k_pad = -(-k // bk) * bk
+    k1.check_plan(-(-m // bm) * bm, -(-n // bn) * bn, k_pad, bm, bn, bk, splits)
     assert bk <= max(k1.STAGE_K, -(-k // k1.STAGE_K) * k1.STAGE_K)
-    assert k1.smem_bytes(bm, bn, bk) <= 48 * 1024  # static shared memory
+    assert k1.smem_bytes(bm, bn) <= 232448  # dynamic shared memory
+    assert bm * bn // 32 <= 1024  # threads: one warp per 32 x 32
+
+
+# Kernel 1's planner: the main path's shapes (rSVD, RP-HOSVD and the two
+# later RP-ST-HOSVD modes), then ragged ones.
+PLAN_SHAPES = {"rsvd": (4096, 266, 4096), "hosvd": (256, 32, 65536),
+               "sthosvd_mode1": (256, 32, 8192), "sthosvd_mode2": (256, 32, 1024),
+               "ragged": (300, 130, 700), "tiny": (7, 3, 130),
+               "tall": (20000, 8, 3000), "wide_k": (37, 70, 5000)}
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_shgemm_plan_is_launchable(shape):
+    """bk equals kernel 2's planner's (equal bits on equal Omega); the split
+    count divides the padded k's tiles, keeps the workspace under its cap
+    and is the least that fills the card's waves."""
+    m, n, k = PLAN_SHAPES[shape]
+    bm, bn, bk, splits = ops.shgemm_plan(m, n, k)
+    assert bk == ops.fused_plan(m, n, k)[2]
+    m_pad, n_pad, k_pad = -(-m // bm) * bm, -(-n // bn) * bn, -(-k // bk) * bk
+    k1.check_plan(m_pad, n_pad, k_pad, bm, bn, bk, splits)
+    assert (k_pad // bk) % splits == 0
+    assert k1.workspace_bytes(m_pad, n_pad, k_pad, bk, splits) <= ops.MAX_WORKSPACE_BYTES
+    assert k1.smem_bytes(bm, bn) <= 232448
+    grid = (m_pad // bm) * (n_pad // bn)
+    if grid * (k_pad // bk) >= ops.SM_COUNT:
+        assert grid * splits >= ops.SM_COUNT
+    else:
+        assert splits == k_pad // bk
+    slots = ops.SM_COUNT * ops.resident_blocks(bm, bn, k1.smem_bytes(bm, bn),
+                                               ops.SHGEMM_REGISTERS)
+
+    def fills(d):  # >= SM_COUNT blocks, all resident or WAVE_FILL of the waves
+        nb = grid * d
+        return nb >= ops.SM_COUNT and (
+            nb <= slots or nb >= ops.WAVE_FILL * slots * -(-nb // slots))
+    smaller = [d for d in range(1, splits) if (k_pad // bk) % d == 0]
+    assert not any(fills(d) for d in smaller)  # the least split count that does
+
+
+def test_shgemm_plan_at_the_main_path_shapes():
+    """Kernel 1 takes 128 x 32 tiles, three to an SM: rSVD's 288 output
+    tiles then fit the card at once without a split; RP-HOSVD's two are
+    split 128 ways (256 blocks), the later RP-ST-HOSVD modes over all their
+    tiles."""
+    assert ops.resident_blocks(128, 32, k1.smem_bytes(128, 32),
+                               ops.SHGEMM_REGISTERS) == 3
+    assert ops.shgemm_plan(*PLAN_SHAPES["rsvd"]) == (128, 32, 256, 1)
+    assert ops.shgemm_plan(*PLAN_SHAPES["hosvd"]) == (128, 32, 256, 128)
+    assert ops.shgemm_plan(*PLAN_SHAPES["sthosvd_mode1"]) == (128, 32, 256, 32)
+    assert ops.shgemm_plan(*PLAN_SHAPES["sthosvd_mode2"]) == (128, 32, 256, 4)
+
+
+def test_shgemm_plan_caps_the_workspace():
+    m, n, k = 8192, 32, 2**20  # 4096 tiles of a 32-block grid: 4 GiB
+    assert k1.workspace_bytes(m, n, k, 256, 2) > ops.MAX_WORKSPACE_BYTES
+    assert ops.shgemm_plan(m, n, k)[3] == 1
+    assert ops.shgemm_plan(m, n, k // 8)[3] > 1  # 512 MiB: split
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("lowp", sorted(LOWP))
+def test_ops_shgemm_with_splits_matches_reference(splits, lowp):
+    """``splits=`` pins the split count; on the CPU it validates the plan
+    and runs the plain version, which still matches the reference."""
+    jdt, _ = LOWP[lowp]
+    a, b = _operands(40, 1024, 30, jdt, seed=11)  # bk 256: four tiles
+    want = np.asarray(ref_ops.shgemm(jnp.asarray(a), jnp.asarray(b),
+                                     blocks=REF_BLOCKS))
+    got = ops.shgemm(torch.from_numpy(a), from_reference(b), splits=splits,
+                     device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"blocks": (256, 64, 256)}, "unsupported"),
+    ({"blocks": (128, 32, 48)}, "unsupported"),
+    ({"splits": 3}, "must be an integer"),
+    ({"splits": 0}, "must be an integer"),
+    ({"splits": 8}, "must be an integer"),
+    ({"splits": 2.0}, "must be an integer"),
+    ({"blocks": (32, 32, 512), "splits": 4}, "must be an integer"),
+])
+def test_shgemm_bad_plan_raises_before_launch(kw, match, monkeypatch):
+    """A bad plan raises in the wrapper's checks, before the kernel or its
+    plain version runs."""
+    def no_run(*args, **kwargs):
+        raise AssertionError("ran despite a bad plan")
+    monkeypatch.setattr(k1, "shgemm_plain", no_run)
+    monkeypatch.setattr(k1, "_launcher", no_run)
+    before = k1.launches
+    with pytest.raises(ValueError, match=match):
+        ops.shgemm(torch.ones((40, 1024)), torch.ones((1024, 30)), device="cpu", **kw)
+    assert k1.launches == before
 
 
 def test_plain_is_the_reference_math():
