@@ -87,7 +87,7 @@ FUSED_PLANS = {"rsvd": ((256, 32, 1), (256, 32, 2), (256, 32, 4), (128, 64, 1),
                          (128, 64, 256), (128, 32, 128), (64, 32, 64),
                          (32, 32, 256))}
 REPS = 3
-E2E_REPS = 5
+E2E_REPS = 11
 
 
 # Serving slice (qwen3-0.6b at full width).  Prefill: prefill_32k's
@@ -530,11 +530,13 @@ def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
     t_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) / PEAK_BYTES_PER_S
     flash = (t_k, t_p, t_l, max(t_ops, t_bytes) * 1e3,
              "operations" if t_ops >= t_bytes else "bytes")
+    per_sm = k3.blocks_per_sm(hd, torch.bfloat16)
     print(f"[time] flash_attention (1, {s}, {h}|{kvh}, {hd}) bf16 causal: kernel "
           f"{t_k:.3f} ms, plain {t_p:.3f} ms, scaled_dot_product_attention "
           f"{t_l:.3f} ms, bound {flash[3]:.3f} ms ({flash[4]}); kernel/bound "
           f"{t_k / flash[3]:.2f}x, {k3.causal_flops(1, s, h, hd) / t_k / 1e9:.1f} "
-          f"TFLOP/s [{card}]")
+          f"TFLOP/s; occupancy {per_sm} blocks of {k3.WARPS} warps "
+          f"an SM [{card}]")
     del q, k, v, qt, kt, vt
 
     eng = kern_engine

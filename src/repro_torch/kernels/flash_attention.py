@@ -4,8 +4,12 @@ Port of the Pallas TPU kernel ``_flash_kernel``
 (``repro/kernels/flash_attention.py``, entry ``flash_attention``) as
 hand-written CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``): one
 block per (q block, batch x kv head) carrying the G = H / KV query heads of
-its group, the kv loop inside the block and only up to the causal diagonal,
-m / l / the accumulator in registers, both products on ``mma.sync`` with f32
+its group (four warps of 32 query rows, two blocks an SM), the kv loop
+inside the block and only up to the causal diagonal, Q and 32-key K/V tiles
+copied into shared memory by ``cp.async`` (K/V through a two-tile ring),
+bf16 fragments by ``ldmatrix`` (V's transposed on the way), the mask only on
+diagonal and ragged-edge tiles, an ``exp2f`` softmax, m / l / the
+accumulator in registers, both products on ``mma.sync`` with f32
 accumulation.  bf16 inputs round P to bf16 for P.V; f32 inputs split every
 operand into bf16 hi + lo (three products each), which keeps the result at
 f32 accuracy.
@@ -28,10 +32,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import shgemm as _k
 
-# Query rows (all G heads of a group) per block, and keys per kv tile.
+# Query rows (all G heads of a group) per block, and its warps (32 rows
+# each).
 BLOCK_ROWS = 128
-BLOCK_KV = {torch.bfloat16: 64, torch.float32: 32}
+WARPS = 4
 HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
 GROUPS = (1, 2, 4, 8)
 # Query chunk of the plain version: scores are (B, KV, G, chunk, S) f32.
 PLAIN_CHUNK = 1024
@@ -78,6 +84,19 @@ def _launcher():
     return fn
 
 
+def blocks_per_sm(hd: int, dtype=torch.bfloat16, device=None) -> int:
+    """Blocks of the kernel for head size ``hd`` (64 or 128) and ``dtype``
+    that one SM holds at once (the CUDA occupancy calculator on the built
+    kernel); needs the card."""
+    fn = _build.load("flash_attention").flash_attention_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = fn(hd, int(dtype == torch.float32), torch.device(device or "cuda").index or 0)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for the flash kernel at hd={hd}, {dtype}")
+    return n
+
+
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, s, h, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
@@ -102,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
                          f"got {q.device}")
-    if q.dtype not in BLOCK_KV or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes bf16 or f32 q/k/v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS or h // k.shape[2] not in GROUPS:
@@ -110,6 +129,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"H/KV in {GROUPS}, got {hd} and {h // k.shape[2]}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _k.check_launch_operand(x, name, q.device)
+    # The kernel's softmax folds scale * log2(e) into one FMA and takes
+    # scale > 0: q . k * s = (-q) . k * (-s), and at s = 0 every score is 0.
+    if scale < 0:
+        q, scale = -q, -scale
+    elif scale == 0:
+        q, scale = torch.zeros_like(q), 1.0
     out = torch.empty_like(q)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       b, s, h, k.shape[2], hd, int(causal), float(scale),

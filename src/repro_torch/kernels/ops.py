@@ -18,6 +18,8 @@ the split count's rule (``plan_splits``).  The autotuner is not ported yet.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -100,6 +102,7 @@ def _plan_blocks(m: int, n: int, k: int,
     return bm, bn, bk
 
 
+@functools.lru_cache(maxsize=1024)
 def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     """Kernel 1's (bm, bn, bk, splits).  Rows up to 128 a block: kernel 1
     hashes nothing, so sharing a B stage among eight warps (256 rows) buys
@@ -115,6 +118,7 @@ def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     return bm, bn, bk, plan_splits(m, n, k, (bm, bn, bk), per_sm)
 
 
+@functools.lru_cache(maxsize=1024)
 def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     """Kernel 2's (bm, bn, bk, splits).  Rows up to 256 a block: there the
     eight warps of a block share each Omega stage, so Omega is hashed once

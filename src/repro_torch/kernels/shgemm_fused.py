@@ -29,6 +29,7 @@ reference's (1, 2) uint32 key words, held as a pair of Python ints.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -181,6 +182,7 @@ def smem_bytes(bm: int, bn: int) -> int:
     return _k.smem_bytes(bm, bn) + 2 * bn * 4
 
 
+@functools.cache
 def _launcher():
     fn = _build.load("shgemm_fused").shgemm_fused_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3

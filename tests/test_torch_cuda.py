@@ -255,6 +255,12 @@ def test_flash_kernel_ring_edges_f32(gen, s, g, causal):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_flash_kernel_two_blocks_an_sm(gen):
+    """The design point: at hd 128 in bf16 two 4-warp blocks share an SM
+    (registers and 68 KB of shared memory each allow it)."""
+    assert k3.blocks_per_sm(128, torch.bfloat16) == 2
+
+
 @pytest.mark.parametrize("scale", [-0.3, 0.0])
 def test_flash_kernel_negative_and_zero_scale(gen, scale):
     """The kernel's exp2 softmax folds scale * log2(e) into one FMA, which
