@@ -17,8 +17,8 @@
 //    against one tile a warp, and two blocks share an SM (up to 255
 //    registers a thread, 68 KB of shared memory a block at hd 128), so one
 //    block's softmax overlaps the other's MMAs.  Tiles are BKV = 32 keys:
-//    the accumulator takes 128 registers a thread and the scores 32 (64
-//    keys spilled 400 bytes and ran 1.4x slower on an H100);
+//    the accumulator takes 128 registers a thread and the scores 32; 64-key
+//    tiles would need 32 more and spill;
 //  * the kv loop runs inside the block, only up to the causal diagonal:
 //    blocks above it issue no loads and no MMA (the TPU kernel's skipped
 //    grid steps); q blocks are issued heaviest first;

@@ -18,8 +18,6 @@ the split count's rule (``plan_splits``).  The autotuner is not ported yet.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -102,23 +100,29 @@ def _plan_blocks(m: int, n: int, k: int,
     return bm, bn, bk
 
 
-@functools.lru_cache(maxsize=1024)
+def _shgemm_splits(m: int, n: int, k: int,
+                   blocks: tuple[int, int, int]) -> int:
+    """``plan_splits`` for kernel 1's ``blocks``, counting the blocks of
+    that tile an SM holds at once."""
+    bm, bn, _ = blocks
+    return plan_splits(m, n, k, blocks, resident_blocks(
+        bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS))
+
+
 def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     """Kernel 1's (bm, bn, bk, splits).  Rows up to 128 a block: kernel 1
     hashes nothing, so sharing a B stage among eight warps (256 rows) buys
     less than the occupancy it costs -- three 128 x 32 blocks (12 warps) fit
-    an SM, one 256 x 32 block (8 warps).  On an H100 (700 W) 128 x 32 took
-    0.171 ms of device time at rSVD against 0.267-0.377 for 256 x 32 under
-    any split count, and 0.044 ms at RP-HOSVD against 0.050
-    (chip_smoke.py's ``[plans] kernel 1`` lines).  bk equals
-    ``fused_plan``'s, so kernels 1 and 2 give the same bits; the split
-    count is ``plan_splits``' for the blocks an SM holds."""
-    bm, bn, bk = _plan_blocks(m, n, k, max_bm=128)
-    per_sm = resident_blocks(bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS)
-    return bm, bn, bk, plan_splits(m, n, k, (bm, bn, bk), per_sm)
+    an SM, one 256 x 32 block (8 warps).  On an NVIDIA H100 80GB HBM3
+    (700 W) 128 x 32 took 0.172-0.174 ms of device time at rSVD against
+    0.264-0.373 for 256 x 32 under any split count, and 0.044 ms at
+    RP-HOSVD against 0.049-0.051 (chip_smoke.py's ``[plans] kernel 1``
+    lines).  bk equals ``fused_plan``'s, so kernels 1 and 2 give the same
+    bits; the split count is ``_shgemm_splits``'."""
+    blocks = _plan_blocks(m, n, k, max_bm=128)
+    return (*blocks, _shgemm_splits(m, n, k, blocks))
 
 
-@functools.lru_cache(maxsize=1024)
 def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     """Kernel 2's (bm, bn, bk, splits).  Rows up to 256 a block: there the
     eight warps of a block share each Omega stage, so Omega is hashed once
@@ -162,8 +166,7 @@ def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
     else:
         bm, bn, bk = blocks
         _k.check_blocks(bm, bn, bk)
-        planned = plan_splits(m, n, k, blocks, resident_blocks(
-            bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS))
+        planned = _shgemm_splits(m, n, k, blocks)
     c = _k.shgemm_pallas(_pad_to(a, bm, bk), _pad_to(b, bk, bn), bm=bm, bn=bn,
                          bk=bk, splits=planned if splits is None else splits,
                          terms=terms)
@@ -230,7 +233,7 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
         bm, bn, bk, planned = fused_plan(m, n, k)
     else:
         bm, bn, bk = blocks
-        _kf.check_blocks(bm, bn, bk)
+        _k.check_blocks(bm, bn, bk)
         planned = plan_splits(m, n, k, blocks)
     _validate_offset("row_offset", row_offset, bk)
     _validate_offset("col_offset", col_offset, 1)

@@ -21,7 +21,6 @@ runs the plain PyTorch version (``shgemm_plain``) only for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -99,7 +98,6 @@ def shgemm_plain(a: torch.Tensor, b: torch.Tensor, terms: int = 2) -> torch.Tens
     return shgemm_ref(a, b, terms)
 
 
-@functools.cache
 def _launcher():
     fn = _build.load("shgemm").shgemm_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9

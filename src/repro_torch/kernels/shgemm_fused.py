@@ -29,7 +29,6 @@ reference's (1, 2) uint32 key words, held as a pair of Python ints.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -58,8 +57,6 @@ _STORE_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 # Kernel 1's tiles, plan check and workspace: both kernels run the main loop
 # of csrc/shgemm_splitk.cuh.
 FUSED_TILES = _k.TILES
-MAX_SPLITS = _k.MAX_SPLITS
-check_blocks = _k.check_blocks
 check_plan = _k.check_plan
 workspace_bytes = _k.workspace_bytes
 
@@ -182,7 +179,6 @@ def smem_bytes(bm: int, bn: int) -> int:
     return _k.smem_bytes(bm, bn) + 2 * bn * 4
 
 
-@functools.cache
 def _launcher():
     fn = _build.load("shgemm_fused").shgemm_fused_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
