@@ -93,6 +93,24 @@ struct Launch {
   }
 };
 
+// Writes to `blocks` how many blocks of one instantiation an SM holds at
+// once (the CUDA occupancy calculator); returns the first CUDA error.
+struct Occupancy {
+  int* blocks;
+
+  template <typename T, int BM, int BN, int TERMS>
+  int run() const {
+    auto kernel = shgemm_kernel<T, BM, BN, TERMS>;
+    constexpr int smem = shg::SplitKSmem<BM, BN>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, kernel, shg::Tile<BM, BN>::THREADS, smem);
+    return static_cast<int>(err);
+  }
+};
+
 }  // namespace
 
 // splits > 1 needs the workspace W of (K / bk) * M * N floats; W is unused
@@ -111,4 +129,15 @@ extern "C" int shgemm_launch(const void* A, const void* B, void* C, void* W,
                       static_cast<float*>(C), static_cast<float*>(W), M, N, K, bk,
                       splits, static_cast<cudaStream_t>(stream_ptr)};
   return shg::dispatch(bm, bn, b_fp16, terms, launch);
+}
+
+// Blocks of the (bm, bn, terms) instantiation an SM of `device` holds at
+// once; -1 for a plan the kernel does not instantiate or on a CUDA error.
+extern "C" int shgemm_blocks_per_sm(int bm, int bn, int terms, int b_fp16,
+                                    int device) {
+  int blocks = -1;
+  if (cudaSetDevice(device) != cudaSuccess ||
+      shg::dispatch(bm, bn, b_fp16, terms, Occupancy{&blocks}) != 0)
+    return -1;
+  return blocks;
 }

@@ -41,24 +41,13 @@ def _round_up(x: int, align: int) -> int:
 WAVE_FILL = 0.8
 MAX_WORKSPACE_BYTES = 1 << 30
 
-# What one SM holds (H100): 64 K registers, 228 KB of shared memory with
-# 1 KB reserved per block, 64 warps.  Kernel 1's two-term instantiations
-# take 165-170 registers a thread at 128 x 32 and 256 x 32 (nvcc -Xptxas -v
-# on the H100, chip_smoke.py's [setup] lines).
-SM_REGISTERS = 65536
-SM_SMEM_BYTES = 233472
-BLOCK_SMEM_RESERVED = 1024
-SHGEMM_REGISTERS = 168
-
-
-def resident_blocks(bm: int, bn: int, smem: int, registers: int) -> int:
-    """Blocks of a (bm, bn) tile that one SM holds at once: the least of
-    what its registers (allocated per warp in units of 256), its shared
-    memory and its 64 warps allow, and at least 1."""
-    warps = bm * bn // 32 // 32
-    by_regs = SM_REGISTERS // (warps * _round_up(registers * 32, 256))
-    by_smem = SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED)
-    return max(1, min(by_regs, by_smem, 64 // warps))
+# Blocks of kernel 1's 128 x 32 tile, the tile its planner gives every m
+# over 64, that one H100 SM holds at once, by term count: shared memory
+# allows three (66 KB each), and three terms take the registers of only
+# two (``shgemm.blocks_per_sm``, the CUDA occupancy calculator; chip_smoke.py
+# checks these).  The smaller tiles of m <= 64 fit more, so there the split
+# count may be more than the card needs.
+SHGEMM_PER_SM = {1: 3, 2: 3, 3: 2}
 
 
 def plan_splits(m: int, n: int, k: int, blocks: tuple[int, int, int],
@@ -100,16 +89,8 @@ def _plan_blocks(m: int, n: int, k: int,
     return bm, bn, bk
 
 
-def _shgemm_splits(m: int, n: int, k: int,
-                   blocks: tuple[int, int, int]) -> int:
-    """``plan_splits`` for kernel 1's ``blocks``, counting the blocks of
-    that tile an SM holds at once."""
-    bm, bn, _ = blocks
-    return plan_splits(m, n, k, blocks, resident_blocks(
-        bm, bn, _k.smem_bytes(bm, bn), SHGEMM_REGISTERS))
-
-
-def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
+def shgemm_plan(m: int, n: int, k: int,
+                terms: int = 2) -> tuple[int, int, int, int]:
     """Kernel 1's (bm, bn, bk, splits).  Rows up to 128 a block: kernel 1
     hashes nothing, so sharing a B stage among eight warps (256 rows) buys
     less than the occupancy it costs -- three 128 x 32 blocks (12 warps) fit
@@ -118,9 +99,9 @@ def shgemm_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
     0.264-0.373 for 256 x 32 under any split count, and 0.044 ms at
     RP-HOSVD against 0.049-0.051 (chip_smoke.py's ``[plans] kernel 1``
     lines).  bk equals ``fused_plan``'s, so kernels 1 and 2 give the same
-    bits; the split count is ``_shgemm_splits``'."""
+    bits; the split count is ``plan_splits``' with ``SHGEMM_PER_SM``."""
     blocks = _plan_blocks(m, n, k, max_bm=128)
-    return (*blocks, _shgemm_splits(m, n, k, blocks))
+    return (*blocks, plan_splits(m, n, k, blocks, SHGEMM_PER_SM[terms]))
 
 
 def fused_plan(m: int, n: int, k: int) -> tuple[int, int, int, int]:
@@ -161,12 +142,14 @@ def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if terms not in SHGEMM_PER_SM:
+        raise ValueError(f"terms={terms} unsupported")
     if blocks is None:
-        bm, bn, bk, planned = shgemm_plan(m, n, k)
+        bm, bn, bk, planned = shgemm_plan(m, n, k, terms)
     else:
         bm, bn, bk = blocks
         _k.check_blocks(bm, bn, bk)
-        planned = _shgemm_splits(m, n, k, blocks)
+        planned = plan_splits(m, n, k, blocks, SHGEMM_PER_SM[terms])
     c = _k.shgemm_pallas(_pad_to(a, bm, bk), _pad_to(b, bk, bn), bm=bm, bn=bn,
                          bk=bk, splits=planned if splits is None else splits,
                          terms=terms)

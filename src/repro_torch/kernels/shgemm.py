@@ -34,8 +34,8 @@ from repro_torch.kernels.ref import shgemm_ref
 TILES = ((256, 32), (128, 64), (128, 32), (64, 64), (64, 32), (32, 64),
          (32, 32))
 STAGE_K = 32
-DEFAULT_BM = 256   # the planner's tile at the paper's shapes
-DEFAULT_BN = 32
+DEFAULT_BM = 128
+DEFAULT_BN = 64
 DEFAULT_BK = 256
 RING = 3           # A stages in flight (csrc/shgemm_splitk.cuh)
 MAX_SPLITS = 65535  # the grid's third dimension
@@ -104,6 +104,22 @@ def _launcher():
                    + [ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(bm: int, bn: int, terms: int = 2, lowp=torch.bfloat16,
+                  device=None) -> int:
+    """Blocks of the kernel's (bm, bn, terms) instantiation that one SM
+    holds at once (the CUDA occupancy calculator on the built kernel);
+    needs the card."""
+    fn = _build.load("shgemm").shgemm_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    n = fn(bm, bn, terms, int(lowp == torch.float16),
+           torch.device(device or "cuda").index or 0)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for kernel 1 at {(bm, bn)}, "
+                           f"terms={terms}, {lowp}")
+    return n
 
 
 def shgemm_pallas(a: torch.Tensor, b: torch.Tensor, *, bm: int = DEFAULT_BM,

@@ -9,9 +9,9 @@ Omega stage hashed into shared memory from (key words, global row +
 row_offset, global col + col_offset), once per block and shared by its
 warps.  ``splits`` > 1 cuts K into that many runs of whole ``bk`` tiles,
 one per block along the grid's third axis; each writes its tiles' partial
-products to a workspace (``workspace_bytes``) and a second kernel sums them
-in tile order, so the output bits depend on ``bk`` alone, never on the
-blocks or the split count, and equal kernel 1's on the same Omega.
+products to a workspace (``shgemm.workspace_bytes``) and a second kernel
+sums them in tile order, so the output bits depend on ``bk`` alone, never on
+the blocks or the split count, and equal kernel 1's on the same Omega.
 
 Determinism contract (the reference's DESIGN.md §9): every Omega element is
 a pure function of (key, row, col) on the global lattice.  The uint32 bits
@@ -54,11 +54,6 @@ _TWO_NEG_25 = float(2.0**-25)
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _STORE_KIND = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
-# Kernel 1's tiles, plan check and workspace: both kernels run the main loop
-# of csrc/shgemm_splitk.cuh.
-FUSED_TILES = _k.TILES
-check_plan = _k.check_plan
-workspace_bytes = _k.workspace_bytes
 
 # Kernel launches made by ``shgemm_fused_pallas`` in this process, and how
 # many of them also launched the split-K reduction.
@@ -198,14 +193,14 @@ def shgemm_fused_pallas(a: torch.Tensor, words, n: int, *, bm: int, bn: int,
     device memory.  Shapes must be multiples of the block sizes;
     ``ops.shgemm_fused`` pads arbitrary shapes before calling this.
     ``splits`` must divide ``k / bk``; with more than one, a workspace of
-    ``workspace_bytes`` is allocated and the reduction kernel launched too.
-    ``offsets`` is ``(row_offset, col_offset)``."""
+    ``shgemm.workspace_bytes`` is allocated and the reduction kernel
+    launched too.  ``offsets`` is ``(row_offset, col_offset)``."""
     m, k = a.shape
     if a.dtype != torch.float32:
         raise TypeError(f"A must be f32, got {a.dtype}")
     if lowp_dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"Omega dtype must be bf16/fp16, got {lowp_dtype}")
-    check_plan(m, n, k, bm, bn, bk, splits)
+    _k.check_plan(m, n, k, bm, bn, bk, splits)
     if terms not in (1, 2, 3) or (terms == 3 and lowp_dtype == torch.float16):
         raise ValueError(f"terms={terms} unsupported for {lowp_dtype}")
     if dist not in SKETCH_DISTS:

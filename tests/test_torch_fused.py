@@ -20,6 +20,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import shgemm_fused as ref_kf
 from repro_torch.convert import key_from_seed, key_words_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels import shgemm as k1
 from repro_torch.kernels import shgemm_fused as kf
 
 jax.config.update("jax_platform_name", "cpu")
@@ -202,7 +203,7 @@ def test_fused_plan_is_launchable(shape):
     m, n, k = PLAN_SHAPES[shape]
     bm, bn, bk, splits = ops.fused_plan(m, n, k)
     k_pad = -(-k // bk) * bk
-    kf.check_plan(-(-m // bm) * bm, -(-n // bn) * bn, k_pad, bm, bn, bk, splits)
+    k1.check_plan(-(-m // bm) * bm, -(-n // bn) * bn, k_pad, bm, bn, bk, splits)
     assert (k_pad // bk) % splits == 0
     assert bk == ops.shgemm_plan(m, n, k)[2]  # kernel 1's bk: equal bits
     grid = -(-m // bm) * -(-n // bn)
@@ -233,7 +234,7 @@ def test_fused_plan_caps_the_workspace():
     """Split-K needs a workspace of k / bk output-sized tiles: past
     MAX_WORKSPACE_BYTES the planner keeps one split."""
     m, n, k = 8192, 32, 2**20  # 4096 tiles of a 32-block grid: 4 GiB
-    assert kf.workspace_bytes(m, n, k, 256, 2) > ops.MAX_WORKSPACE_BYTES
+    assert k1.workspace_bytes(m, n, k, 256, 2) > ops.MAX_WORKSPACE_BYTES
     assert ops.fused_plan(m, n, k) == (256, 32, 256, 1)
     assert ops.fused_plan(m, n, k // 8)[3] > 1  # 512 MiB: split
 
@@ -244,7 +245,7 @@ def test_fused_plan_caps_the_workspace():
                                              (4096, 288, 4096, 256, 1)])
 def test_workspace_bytes_formula(m, n, k, bk, splits):
     want = 0 if splits == 1 else (k // bk) * m * n * 4
-    assert kf.workspace_bytes(m, n, k, bk, splits) == want
+    assert k1.workspace_bytes(m, n, k, bk, splits) == want
     if (m, n, k) == (256, 32, 65536):
         assert want == 8 * 2**20  # the HOSVD shape's W: 8 MiB
 
@@ -284,7 +285,7 @@ def test_fused_bad_plan_raises_on_cpu(kw, match):
         ops.shgemm_fused(torch.ones((40, 1024)), KEY, 30, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("tile", kf.FUSED_TILES, ids=str)
+@pytest.mark.parametrize("tile", k1.TILES, ids=str)
 def test_fused_tiles_fit_shared_memory(tile):
     """Every instantiated tile fits the 227 KB a block may use; the
     mirror's formula is csrc/'s at the planner's 256 x 32 tile."""

@@ -167,8 +167,7 @@ def test_shgemm_plan_is_launchable(shape):
         assert grid * splits >= ops.SM_COUNT
     else:
         assert splits == k_pad // bk
-    slots = ops.SM_COUNT * ops.resident_blocks(bm, bn, k1.smem_bytes(bm, bn),
-                                               ops.SHGEMM_REGISTERS)
+    slots = ops.SM_COUNT * ops.SHGEMM_PER_SM[2]
 
     def fills(d):  # >= SM_COUNT blocks, all resident or WAVE_FILL of the waves
         nb = grid * d
@@ -182,13 +181,13 @@ def test_shgemm_plan_at_the_main_path_shapes():
     """Kernel 1 takes 128 x 32 tiles, three to an SM: rSVD's 288 output
     tiles then fit the card at once without a split; RP-HOSVD's two are
     split 128 ways (256 blocks), the later RP-ST-HOSVD modes over all their
-    tiles."""
-    assert ops.resident_blocks(128, 32, k1.smem_bytes(128, 32),
-                               ops.SHGEMM_REGISTERS) == 3
+    tiles.  Three terms fit two blocks an SM: rSVD's 288 tiles would leave
+    a thin second wave, so they are split 4 ways (1152 blocks, 5 waves)."""
     assert ops.shgemm_plan(*PLAN_SHAPES["rsvd"]) == (128, 32, 256, 1)
     assert ops.shgemm_plan(*PLAN_SHAPES["hosvd"]) == (128, 32, 256, 128)
     assert ops.shgemm_plan(*PLAN_SHAPES["sthosvd_mode1"]) == (128, 32, 256, 32)
     assert ops.shgemm_plan(*PLAN_SHAPES["sthosvd_mode2"]) == (128, 32, 256, 4)
+    assert ops.shgemm_plan(*PLAN_SHAPES["rsvd"], terms=3) == (128, 32, 256, 4)
 
 
 def test_shgemm_plan_caps_the_workspace():
