@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 260 s on an H100, the build included).
+(about 280 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -32,7 +32,9 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
 5. kernels 3-4 vs their plain versions: flash attention at qwen3-0.6b's
    prefill shape (1, 32768, 16|8, 128) bf16, a ragged S and f32; factored
    decode at the engine's shape (8, 2048, 8, 128), r = 32, comp_len mixed,
-   write_pos mid-cache, garbage past it, NaN factors where comp_len = 0;
+   write_pos mid-cache, garbage past it, NaN factors where comp_len = 0, and
+   at the full slot (write_pos 2047, comp_len up to 1984); write_pos as an
+   int32 on the card bit-equal to the int, two calls bit-equal;
 6. prefill at full width (28 layers, random weights from a seed; batch cut
    from 32 to 1): ``make_prefill_step`` with kernel 3 vs the plain
    attention, then grow_cache + one decode step vs a full forward, in bf16
@@ -44,7 +46,12 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    (tokens/s, decode step, peak memory, one traced decode step);
 8. timings of kernels 3-4: kernel, plain version, bound and library call
    (``scaled_dot_product_attention`` for flash; none exists for factored
-   decode).
+   decode); kernel 4 at the engine's final state and at the full slot, by
+   CUDA events around one call, a launch replayed from a CUDA graph (L2
+   warm and evicted) and the profiler's device time, beside an empty
+   launch's time, with the wrapper's host time a call and a sweep of its
+   split count P (the ``[plans] kernel 4`` lines: the planner's P must be
+   within 10 % of the best graph time).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -103,6 +110,8 @@ SERVE_TOL = 1e-1          # max |d logit| kernel vs plain engine (DESIGN §12)
 BF16_EXCESS = 16          # bf16 logits: ulps at the median |logit| (logits_agree)
 PEAK_F32_FLOP_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
 TIMING_REPS = 20          # for the sub-millisecond decode kernel
+# Kernel 4's split counts timed beside the planner's (the [plans] sweep).
+FDEC_SPLITS = (1, 2, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 
 
 class CheckFailed(Exception):
@@ -196,14 +205,67 @@ def device_ms(torch, fn, reps: int = REPS) -> float | None:
     return total / 1e3 / reps if total > 0 else None
 
 
+def kernel_ms(torch, fn, match: str, reps: int = REPS) -> tuple[float | None, int]:
+    """Device time of one launch of the kernel whose name holds ``match``
+    (one a call of ``fn``): the mean over the launches the torch.profiler
+    trace holds, with their count.  Late in a long run the trace of short
+    back-to-back launches has held only some of them, so dividing by
+    ``reps`` would understate the time; None where it holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and match in ev.key]
+    count = sum(ev.count for ev in evs)
+    total = sum(ev.self_device_time_total for ev in evs)
+    return (total / 1e3 / count if count and total > 0 else None), count
+
+
+def graph_ms(torch, fn, n: int = TIMING_REPS, reps: int = 5) -> float:
+    """Time of one call of ``fn`` replayed ``n`` times back to back from one
+    CUDA graph (CUDA events around the replay, median of ``reps``): device
+    time with the graph's launch gaps, no host in between and no profiler.
+    ``fn`` runs twice on the capture stream first, so that it allocates
+    nothing new while captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
 def fmt_ms(t: float | None) -> str:
     return "not measured" if t is None else f"{t:.4f}"
 
 
-def device_breakdown(torch, fn, top: int = 5):
-    """One traced call: wall ms, summed device-kernel ms, and the ``top``
-    kernels by device time (torch.profiler).  Only device events count:
-    an operator's own device time repeats that of its kernels."""
+def device_breakdown(torch, fn):
+    """One traced call: wall ms, summed device-kernel ms, and every kernel
+    with its device ms, the longest first (torch.profiler).  Only device
+    events count: an operator's own device time repeats that of its
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -217,7 +279,7 @@ def device_breakdown(torch, fn, top: int = 5):
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(v for _, v in rows), rows[:top]
+    return wall, sum(v for _, v in rows), rows
 
 
 def bound_ms(m: int, k: int, n: int, terms: int, omega_bytes: int) -> tuple[float, str]:
@@ -298,26 +360,48 @@ def phase5_kernels(torch, gen, cfg) -> dict:
         errs[("flash", label)] = err
         del q, k, v, got, want
     s, r, b = ENGINE_KW["max_seq"], ENGINE_KW["kv_sketch_rank"], ENGINE_KW["slots"]
+    plan = k4.decode_plan(b, kvh, s, hd, r, h // kvh)
+    print(f"[kernels] factored_decode plan at ({b}, {s}, {kvh}, {hd}) r={r}: "
+          f"{plan.splits} splits on a {plan.grain}-row grain, grid "
+          f"({plan.splits}, {b * kvh}), {plan.smem} B shared memory a block, "
+          f"workspace {plan.workspace * 4} B (no write_pos enters)")
     wp = min(1000, s // 2)                     # mid-cache, garbage past it
     comp = ((0, wp + 1, wp * 5 // 8, 0, wp + 1, wp // 4, wp * 9 // 10, 1)
             * b)[:b]                           # none / all / partial
-    block = k4.heuristic_decode_block(s)
-    # f32 at 1e-4: 1001-row sums in another order than the einsums' (the
-    # reference's 1e-5 holds at its test shapes: tests/test_torch_cuda.py)
-    for label, dt, tol in (("bf16", torch.bfloat16, 1e-2), ("f32", torch.float32, 1e-4)):
+    # The full slot: every row live, comp_len mixed up to 1984 (the last
+    # swap of a 2048-row slot at 64-row swaps).
+    full = (1984, 0, 1024, 1984, 64, 1920, 1984, 1)
+    # f32 at 1e-4: 1001- and 2048-row sums in another order than the
+    # einsums' (the reference's 1e-5 holds at its test shapes:
+    # tests/test_torch_cuda.py)
+    for label, cwp, ccomp, dt, tol in (
+            ("bf16", wp, comp, torch.bfloat16, 1e-2),
+            ("f32", wp, comp, torch.float32, 1e-4),
+            ("full bf16", s - 1, full, torch.bfloat16, 1e-2),
+            ("full f32", s - 1, full, torch.float32, 1e-4)):
         args = fdec_inputs(torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r,
-                           comp=comp, wp=wp, dtype=dt)
-        got = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5,
-                                           block_kv=block)
-        want = k4.factored_decode_plain(*args, wp, scale=hd ** -0.5)
+                           comp=ccomp, wp=cwp, dtype=dt)
+        got = k4.factored_decode_attention(*args, cwp, scale=hd ** -0.5)
+        want = k4.factored_decode_plain(*args, cwp, scale=hd ** -0.5)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         print(f"[kernels] factored_decode {label} ({b}, {s}, {kvh}, {hd}) r={r} "
-              f"write_pos={wp} comp_len={list(comp)} block_kv={block}: "
+              f"write_pos={cwp} comp_len={list(ccomp)}: "
               f"max|kernel-plain| {err:.3e} (tol {tol})")
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
               f"factored_decode {label} disagrees with plain")
         errs[("fdec", label)] = err
+        if label == "bf16":
+            # the clock as an int32 on the card, read by the kernel: the
+            # same bits; and a second call gives the same bits again
+            clock = torch.tensor([cwp], dtype=torch.int32, device=gen.device)
+            by_tensor = k4.factored_decode_attention(*args, clock, scale=hd ** -0.5)
+            again = k4.factored_decode_attention(*args, cwp, scale=hd ** -0.5)
+            check(torch.equal(by_tensor, got),
+                  "factored_decode: write_pos on the card != the int's bits")
+            check(torch.equal(again, got), "factored_decode: two calls differ")
+            print("[kernels] factored_decode bf16: write_pos as an int32 on the "
+                  "card == the int path, and two calls, bit for bit")
     # comp_len == 0 everywhere: NaN factors must change no bit
     args = list(fdec_inputs(torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r,
                             comp=(0,) * b, wp=wp, dtype=torch.bfloat16))
@@ -499,7 +583,7 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
           f"({ENGINE_KW['max_seq']}, {eng._kv_min_rows}) sketch, B = Q^T K, SVD, "
           f"rank {ENGINE_KW['kv_sketch_rank']}): wall {wall_c:.3f} ms (traced), "
           f"device kernels {busy_c:.3f} ms (busy {100 * busy_c / wall_c:.0f}%); "
-          f"top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c) + f" [{card}]")
+          f"top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c[:5]) + f" [{card}]")
     del eng, out["float32"]["engine"]
 
     traced = []
@@ -525,9 +609,11 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
           f"the swaps: {slow}); peak memory {peak:.2f} GiB; "
           f"swappable KV {rep['compressed_bytes'] / 2**20:.1f} MiB vs dense "
           f"{rep['dense_bytes'] / 2**20:.1f} MiB [{card}]")
+    fdec = sum(v for k, v in top if "fdec" in k)
     print(f"[profile] one decode step: wall {wall_t:.3f} ms (traced), device "
-          f"kernels {busy:.3f} ms (busy {100 * busy / wall_t:.0f}%); top: "
-          + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" [{card}]")
+          f"kernels {busy:.3f} ms (busy {100 * busy / wall_t:.0f}%); kernel 4 "
+          f"(fdec, {cfg.n_layers} launches) {fdec:.3f} ms; top: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:5]) + f" [{card}]")
     return out
 
 
@@ -567,21 +653,87 @@ def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
     comp = torch.as_tensor(eng._kv_comp_len, device=kc.device)
     qd = torch.randn((eng.slots, 1, h, hd), generator=gen,
                      device=gen.device).to(torch.bfloat16)
-    args = (qd, kc, vc, f["k_us"], f["k_vt"], f["v_us"], f["v_vt"], comp)
-    block = k4.heuristic_decode_block(kc.shape[1])
-    t_k = median_ms(torch, lambda: k4.factored_decode_attention(
-        *args, wp, scale=hd ** -0.5, block_kv=block), reps=TIMING_REPS)
-    t_p = median_ms(torch, lambda: k4.factored_decode_plain(
-        *args, wp, scale=hd ** -0.5), reps=TIMING_REPS)
-    nbytes = k4.bytes_needed(qd, kc, f["k_us"], comp, wp)
-    nops = k4.operations_needed(qd, kc, f["k_us"], comp, wp)
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S, nops / PEAK_F32_FLOP_PER_S
-    fdec = (t_k, t_p, None, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-    print(f"[time] factored_decode layer 0 of the engine's final state "
-          f"({eng.slots}, {kc.shape[1]}, {kvh}, {hd}) r={f['k_us'].shape[-1]} "
-          f"write_pos={wp} comp_len={[int(c) for c in eng._kv_comp_len]}: kernel "
-          f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {fdec[3]:.5f} ms ({fdec[4]}: "
-          f"{nbytes} B, {nops} f32 ops); kernel/bound {t_k / fdec[3]:.1f}x [{card}]")
+    s, r = kc.shape[1], f["k_us"].shape[-1]
+    full = (s - 64,) * eng.slots          # every slot after its last 64-row swap
+    states = {"engine": ((qd, kc, vc, f["k_us"], f["k_vt"], f["v_us"], f["v_vt"],
+                          comp), wp),
+              "full": (fdec_inputs(torch, gen, b=eng.slots, s=s, h=h, kvh=kvh,
+                                   hd=hd, r=r, comp=full, wp=s - 1,
+                                   dtype=torch.bfloat16), s - 1)}
+    # The engine meets each layer's state cold: a 64 MB read between calls
+    # evicts the 50 MB L2 for the "L2 evicted" times.
+    evict = torch.zeros(16 * 2**20, device=gen.device)
+    floor_ms = median_ms(torch, k4.empty_launch, reps=TIMING_REPS)
+    floor_graph = graph_ms(torch, k4.empty_launch)
+    print(f"[time] empty kernel launch (the latency floor): {floor_ms:.4f} ms by "
+          f"CUDA events around one launch, {floor_graph:.4f} ms a launch in a "
+          f"CUDA graph [{card}]")
+    fdec = {"per_state": []}
+    for label, (args, cwp) in states.items():
+        plan = k4.decode_plan(eng.slots, kvh, s, hd, r, h // kvh)
+        clock = torch.tensor([cwp], dtype=torch.int32, device=gen.device)
+
+        # the clock is read on the card, as a captured decode step would
+        def call(p=None, args=args):
+            return k4.factored_decode_attention(*args, clock, scale=hd ** -0.5,
+                                                splits=p)
+
+        def cold(p=None, call=call):
+            evict.sum()
+            return call(p)
+        t_k = median_ms(torch, lambda: k4.factored_decode_attention(
+            *args, cwp, scale=hd ** -0.5), reps=TIMING_REPS)
+        t_d, seen = kernel_ms(torch, call, "fdec_kernel", TIMING_REPS)
+        t_g = graph_ms(torch, call)
+        t_c = graph_ms(torch, cold) - graph_ms(torch, lambda: evict.sum())
+        t_p = median_ms(torch, lambda: k4.factored_decode_plain(
+            *args, cwp, scale=hd ** -0.5), reps=TIMING_REPS)
+        nbytes = k4.bytes_needed(args[0], args[1], args[3], args[7], cwp)
+        nops = k4.operations_needed(args[0], args[1], args[3], args[7], cwp)
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOP_PER_S * 1e3
+        bound, by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        host = {}
+        for how, wp_arg in (("int", cwp), ("device", clock)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):               # no sync inside
+                k4.factored_decode_attention(*args, wp_arg, scale=hd ** -0.5)
+            host[how] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        print(f"[time] factored_decode {label} state ({eng.slots}, {s}, {kvh}, "
+              f"{hd}) r={r} write_pos={cwp} comp_len="
+              f"{[int(c) for c in args[7].tolist()]}, plan {plan.splits} splits: "
+              f"kernel {t_k:.4f} ms by CUDA events around one call, "
+              f"{t_g:.4f} ms a launch in a CUDA graph (L2 warm), {t_c:.4f} ms "
+              f"(L2 evicted), device {fmt_ms(t_d)} ms by the profiler ({seen} of "
+              f"{TIMING_REPS} launches in its trace); plain {t_p:.4f} ms; bound "
+              f"{bound:.5f} ms ({by}: {nbytes} B, {nops} f32 ops), empty-launch "
+              f"floor {floor_ms:.4f} ms ({floor_graph:.4f} in a graph); graph/bound "
+              f"{t_g / bound:.1f}x; wrapper host {host['int']:.1f} us a call with an "
+              f"int clock, {host['device']:.1f} us with a device clock (mean of "
+              f"1000, no sync) [{card}]")
+        grains = -(-s // plan.grain)
+        sweep = sorted({p for p in FDEC_SPLITS if p <= grains} | {plan.splits})
+        times = {p: (median_ms(torch, lambda p=p: call(p), reps=TIMING_REPS),
+                     graph_ms(torch, lambda p=p: call(p))) for p in sweep}
+        best = min(times, key=lambda p: times[p][1])
+        at_plan, at_best = times[plan.splits][1], times[best][1]
+        print(f"[plans] kernel 4 {label} state, splits P: CUDA-event ms around "
+              f"one call / ms a launch in a CUDA graph: "
+              + "; ".join(f"{p} {t:.4f} / {g:.4f}" for p, (t, g) in times.items())
+              + f"; least graph time at P = {best}; the planner's P = "
+              f"{plan.splits} is {at_plan / at_best:.3f}x it [{card}]")
+        check(at_plan <= 1.1 * at_best,
+              f"kernel 4 {label}: the planner's {plan.splits} splits take "
+              f"{at_plan:.4f} ms, over 1.1x the sweep's best {at_best:.4f} ms "
+              f"(P = {best})")
+        fdec["per_state"].append({
+            "state": label, "write_pos": cwp, "splits": plan.splits,
+            "ms": t_k, "device_ms": t_d, "device_launches_traced": seen,
+            "graph_ms": t_g, "graph_evicted_ms": t_c, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": by, "floor_ms": floor_ms,
+            "floor_graph_ms": floor_graph, "host_us": host,
+            "sweep": {str(p): list(v) for p, v in times.items()}})
     print("[time] factored_decode library_ms: null — no single PyTorch call "
           "computes attention over a rank-r factored prefix plus a dense tail "
           "under one softmax (scaled_dot_product_attention needs K and V "
@@ -910,7 +1062,7 @@ def main() -> int:
         wall, busy, top = device_breakdown(torch, calls[name])
         print(f"[profile] {name[0]} {name[1]}: wall {wall:.3f} ms (traced), device "
               f"kernels {busy:.3f} ms (busy {100 * busy / wall:.0f}%); top: "
-              + "; ".join(f"{k} {v:.3f} ms" for k, v in top) + f" [{card}]")
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:5]) + f" [{card}]")
     per_call = {}
     for name, counter, call in (
             ("rsvd shgemm_pallas", k1, lambda: rsvd.rsvd(
@@ -962,17 +1114,25 @@ def main() -> int:
     for rec in kernels:
         rec["reductions"] = main_reductions[rec["name"]]
         rec["per_shape"] = per_shape[rec["name"]]
-    for name, replaces, launches, err in (
-            ("flash_attention", "src/repro/kernels/flash_attention.py:38",
-             prefill["launches"], errs5[("flash", "prefill")]),
-            ("factored_decode", "src/repro/kernels/factored_decode.py:50",
-             engine["launches"], errs5[("fdec", "bf16")])):
-        t_k, t_p, t_l, t_b, by = times8[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": t_b, "bound_by": by, "library_ms": t_l})
+    t_k, t_p, t_l, t_b, by = times8["flash_attention"]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:38",
+                    "launches": prefill["launches"],
+                    "max_abs_err": errs5[("flash", "prefill")], "ms": t_k,
+                    "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
+                    "library_ms": t_l})
+    fdec = times8["factored_decode"]["per_state"]
+    kernels.append({"name": "factored_decode", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/factored_decode.cu",
+                    "replaces": "src/repro/kernels/factored_decode.py:50",
+                    "launches": engine["launches"],
+                    "max_abs_err": errs5[("fdec", "bf16")], "ms": fdec[0]["ms"],
+                    "device_ms": fdec[0]["device_ms"],
+                    "plain_ms": fdec[0]["plain_ms"],
+                    "bound_ms": fdec[0]["bound_ms"],
+                    "bound_by": fdec[0]["bound_by"], "library_ms": None,
+                    "per_state": fdec})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -265,9 +265,10 @@ def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
                               cap: float = 0.0,
                               block_kv: int | None = None) -> torch.Tensor:
     """Factored-prefix decode attention through kernel 4, same signature and
-    semantics as the oracle ``models.layers.factored_decode_attention``.
-    ``block_kv`` comes from ``heuristic_decode_block`` unless given (the
-    autotuner is not ported)."""
+    semantics as the oracle ``models.layers.factored_decode_attention``;
+    ``write_pos`` may be an int32 tensor on the card.  ``block_kv`` is the
+    grain of the kernel's split boundaries (``factored_decode.GRAIN`` unless
+    given); the split count comes from ``factored_decode.decode_plan``."""
     return _fd.factored_decode_attention(
         q, k, v, k_us, k_vt, v_us, v_vt, comp_len, write_pos, scale=scale,
         cap=cap, block_kv=block_kv)

@@ -380,6 +380,107 @@ def test_fdec_kernel_engine_shape_bf16(gen):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("wp", [0, 7, 8, 25, 39, 47])
+@pytest.mark.parametrize("splits", ["one", "planner", "twice"])
+def test_fdec_kernel_splits_and_write_pos(gen, splits, wp):
+    """P = 1, the planner's and twice it (5 and 10 splits of 6 grains: at
+    small clocks most shares are empty) against the plain version."""
+    s = 48
+    args = _fdec_inputs(gen, s=s, comp=(min(13, wp + 1), 0), wp=wp)
+    p = k4.decode_plan(2, 2, s, 16, 5, 2).splits
+    p = {"one": 1, "planner": p, "twice": 2 * p}[splits]
+    before = k4.launches
+    got = k4.factored_decode_attention(*args, wp, scale=0.25, splits=p)
+    assert k4.launches == before + 1
+    want = k4.factored_decode_plain(*args, wp, scale=0.25)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,r", [(16, 5), (20, 8), (20, 6), (128, 32)],
+                         ids=str)
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+    ids=str)
+def test_fdec_kernel_dtype_pairings(gen, hd, r, q_dtype, kv_dtype):
+    """Every q/cache pairing, over the 16-byte and the scalar loads (hd 20
+    in bf16 and r 5 / 6 do not fill a 16-byte vector).  An f32 output
+    holds 1e-5; a bf16 one is rounded once, 1e-2."""
+    args = list(_fdec_inputs(gen, s=40, hd=hd, r=r, comp=(13, 0), wp=30,
+                             dtype=kv_dtype))
+    args[0] = args[0].to(q_dtype)
+    got, want = _fdec_both(tuple(args), 30, hd=hd)
+    assert got.dtype == q_dtype
+    tol = 1e-5 if q_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("h,kvh,hd,r,dtype", [
+    (32, 2, 128, 32, torch.bfloat16),   # 256 (head, vector) pairs > 128 threads
+    (4, 2, 256, 64, torch.float32),     # two vectors a lane; r > 32 in the merge
+    (4, 2, 15, 5, torch.bfloat16),      # odd bf16 rows: 2-byte copies
+], ids=str)
+def test_fdec_kernel_wide_and_odd_shapes(gen, h, kvh, hd, r, dtype):
+    args = _fdec_inputs(gen, s=40, h=h, kvh=kvh, hd=hd, r=r, comp=(13, 0),
+                        wp=30, dtype=dtype)
+    got, want = _fdec_both(args, 30, hd=hd)
+    # f32 at 1e-4: rank-64 factors make K and V entries ~8, and an output
+    # sums ~320 such products in another order than the einsums'
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("wp", [0, 20, 31])
+def test_fdec_kernel_tensor_write_pos_bit_equal(gen, wp):
+    """write_pos as an int32 tensor on the card gives the int path's bits;
+    repeated calls are bit-identical (the merge's order is fixed and its
+    tickets are reset); a clock outside the cache gives NaN."""
+    args = _fdec_inputs(gen, comp=(min(12, wp + 1), 0), wp=wp)
+    by_int = k4.factored_decode_attention(*args, wp, scale=0.25)
+    clock = torch.tensor([wp], dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        assert torch.equal(k4.factored_decode_attention(*args, clock, scale=0.25),
+                           by_int)
+    torch.testing.assert_close(by_int, k4.factored_decode_plain(
+        *args, wp, scale=0.25), rtol=1e-5, atol=1e-5)
+    past = torch.tensor([32], dtype=torch.int32, device="cuda")
+    assert k4.factored_decode_attention(*args, past, scale=0.25).isnan().all()
+
+
+def test_fdec_kernel_graph_replay_follows_device_clock(gen):
+    """The launch does not depend on the clock: captured once in a CUDA
+    graph with write_pos as an int32 on the card, it follows the clock when
+    the graph is replayed at other values of it."""
+    args = _fdec_inputs(gen, s=40, comp=(13, 0), wp=39)
+    clock = torch.zeros(1, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k4.factored_decode_attention(*args, clock, scale=0.25)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = k4.factored_decode_attention(*args, clock, scale=0.25)
+    for wp in (0, 12, 13, 39, 20):
+        clock.fill_(wp)
+        graph.replay()
+        torch.testing.assert_close(out, k4.factored_decode_plain(
+            *args, wp, scale=0.25), rtol=1e-5, atol=1e-5)
+
+
+def test_fdec_kernel_full_slot_bf16(gen):
+    """The engine's shape with every row live (write_pos 2047) and comp_len
+    mixed up to 1984, bf16 cache, at the planner's split."""
+    comp = (1984, 0, 1024, 1984, 64, 1920, 2048, 1)
+    args = _fdec_inputs(gen, b=8, s=2048, h=16, kvh=8, hd=128, r=32,
+                        comp=comp, wp=2047, dtype=torch.bfloat16)
+    got = k4.factored_decode_attention(*args, 2047, scale=128 ** -0.5)
+    want = k4.factored_decode_plain(*args, 2047, scale=128 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+    assert torch.equal(k4.factored_decode_attention(*args, 2047, scale=128 ** -0.5),
+                       got)
+
+
 @pytest.mark.parametrize("act", ["float32", "bfloat16"])
 def test_engine_kernel_path_matches_plain_path_smoke(act):
     """Smoke qwen3: the engine decoding through kernel 4 stays in lockstep

@@ -4,6 +4,7 @@ tensors) against the reference's jnp oracle and its Pallas kernel in
 interpret mode, on the same numpy inputs, at <= 1e-5: the sweep of the
 reference's tests/test_factored_decode_kernel.py."""
 
+import inspect
 import math
 
 import numpy as np
@@ -13,7 +14,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro.kernels import autotune as rtune
 from repro.kernels import factored_decode as rfd
 from repro.models import layers as RL
 from repro_torch.kernels import factored_decode as k4
@@ -154,9 +154,70 @@ def test_dense_only_short_circuit_bitwise(cap, comp):
                                   _always_both_paths(*t, **kw).numpy())
 
 
-@pytest.mark.parametrize("s", [7, 40, 255, 256, 2048])
-def test_heuristic_decode_block_matches_reference(s):
-    assert k4.heuristic_decode_block(s) == rtune.heuristic_decode_block(s)
+# Kernel 4's launch plan: the grid and the workspace are functions of the
+# shapes alone, and at every clock the splits cover the live rows once.
+
+ENGINE = dict(b=8, kvh=8, s=2048, hd=128, r=32, g=2)   # qwen3-0.6b engine
+
+
+def test_decode_plan_takes_no_clock():
+    assert "write_pos" not in inspect.signature(k4.decode_plan).parameters
+    plan = k4.decode_plan(**ENGINE)
+    b, kvh, g, hd, r = 8, 8, 2, 128, 32
+    assert plan.workspace == b * kvh * plan.splits * g * (2 + hd + r)
+    assert plan.grain == k4.GRAIN == 8
+    assert plan.smem == k4.smem_bytes(g, hd, r, plan.splits, 2)
+    assert plan.smem <= k4.SMEM_LIMIT
+
+
+def test_decode_plan_fills_the_card_at_the_engine_shape():
+    """>= 2 blocks an SM of the H100's 132 at 8 slots x 8 kv heads."""
+    plan = k4.decode_plan(**ENGINE)
+    assert plan.splits * 8 * 8 >= 2 * 132
+
+
+@pytest.mark.parametrize("s,grain,splits", [
+    (2048, 8, None), (40, 8, None), (40, 8, 1), (40, 8, 10), (33, 8, 3),
+    (100, 16, 4), (7, 8, 2), (1, 8, 5)], ids=str)
+def test_split_bounds_cover_the_live_rows_once(s, grain, splits):
+    plan = k4.decode_plan(2, 2, s, 16, 5, 2, grain=grain, splits=splits)
+    for wp in range(s):
+        bounds = k4.split_bounds(plan, wp)
+        assert len(bounds) == plan.splits
+        rows = [i for start, end in bounds for i in range(start, end)]
+        assert rows == list(range(wp + 1))
+        share = -(-(-(-(wp + 1) // grain)) // plan.splits) * grain
+        for start, end in bounds:
+            assert end - start <= share
+            if end > start:                    # empty shares sit at the back
+                assert start % grain == 0
+                assert end == wp + 1 or end % grain == 0
+
+
+def test_decode_plan_shared_memory_does_not_follow_the_cache():
+    """A block stages its share a chunk at a time: its shared memory is the
+    same for a 2k and a 32k slot, and one split of a 32k slot fits."""
+    short = k4.decode_plan(8, 8, 2048, 128, 32, 2, splits=1)
+    long = k4.decode_plan(8, 8, 32768, 128, 32, 2, splits=1)
+    assert short.smem == long.smem <= k4.SMEM_LIMIT
+    assert k4.decode_plan(8, 8, 2048, 128, 32, 2, kv_bytes=4).smem <= k4.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.decode_plan(1, 1, 2048, 128, 32, 2, splits=100000)
+
+
+@pytest.mark.parametrize("wp", [0, 7, 25])
+def test_tensor_write_pos_matches_int(wp):
+    """A 0-d int tensor clock on the CPU path equals the int path and the
+    reference's oracle and Pallas kernel (interpret mode) at 1e-5."""
+    args = _inputs(s=40, comp=(min(13, wp + 1), 0), wp=wp)
+    t = [torch.tensor(a) for a in args]
+    kw = dict(scale=0.25, cap=0.0)
+    by_int = k4.factored_decode_attention(*t, wp, **kw).numpy()
+    for clock in (torch.tensor(wp), torch.tensor(wp, dtype=torch.int32)):
+        got = k4.factored_decode_attention(*t, clock, **kw).numpy()
+        np.testing.assert_array_equal(got, by_int)
+    for want in _ref(args, wp):
+        np.testing.assert_allclose(by_int, want, atol=ATOL, rtol=1e-5)
 
 
 def test_bound_counts_follow_the_data():
