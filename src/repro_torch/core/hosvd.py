@@ -1,5 +1,5 @@
 """Random-projection HOSVD (paper Algorithm 2) and tensor utilities (port of
-the one-shot part of ``repro/core/hosvd.py``).
+``repro/core/hosvd.py``).
 
 RP-HOSVD factorizes A in R^{I1 x ... x IN} as a core tensor contracted with
 orthonormal factors Q_k, from one random projection + QR per mode.  The
@@ -10,7 +10,8 @@ Documented deviation: the reference derives the per-mode keys with
 ``jax.random.split(key, ndim)``, which torch cannot reproduce.  The port
 derives them in ``_mode_keys`` by counter-hashing the key words with the
 mode index on stream 6 of the fused kernel's lattice (a stream no
-distribution uses).
+distribution uses).  ``rp_sthosvd_streamed``'s checkpoint arguments wait for
+``stream/resilience.py``, ROADMAP Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import projection as proj
+from repro_torch.core import structured as _sx
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kernels import shgemm_fused as _f
 from repro_torch.kernels.ref import dot_f32 as _dot
@@ -67,11 +69,14 @@ def _mode_keys(key, ndim: int) -> list[tuple[int, int]]:
 
 def _mode_sketch(key, core: torch.Tensor, i: int, rank: int, *, method, dist,
                  omega_dtype) -> torch.Tensor:
-    """W = A_(i) . Omega_i for one mode — the per-mode hot GEMM."""
+    """W = A_(i) . Omega_i for one mode: the per-mode hot GEMM, or the
+    Khatri-Rao factor-by-factor contraction that replaces it.  With
+    ``dist="khatri_rao"`` neither the (I_i, prod I_k) unfolding nor the
+    (prod I_k, J_i) Omega is ever formed."""
     if dist == "khatri_rao":
-        raise NotImplementedError(
-            "dist='khatri_rao' needs core/structured.py (KhatriRaoOmega), "
-            "which is not ported yet")
+        kro = _sx.KhatriRaoOmega(key=key, dims=tuple(core.shape), mode=i,
+                                 p=rank, device=core.device)
+        return kro.sketch_slab(core)
     return proj.sketch(key, unfold(core, i), rank, method=method, dist=dist,
                        omega_dtype=omega_dtype, device=core.device)
 
@@ -114,6 +119,87 @@ def rp_sthosvd(key, a, ranks: tuple[int, ...], *,
         factors.append(q)
         core = mode_dot(core, q.T, i)
     return TuckerResult(core, tuple(factors))
+
+
+def rp_sthosvd_streamed(key, slabs, dims=None, ranks=None, *,
+                        method: proj.ProjectionMethod = "shgemm_fused",
+                        dist: proj.SketchDist = "gaussian",
+                        omega_dtype=torch.bfloat16,
+                        prefetch_depth: int | None = 1,
+                        tol: float | None = None, max_ranks=None,
+                        checkpoint_dir=None,
+                        checkpoint_every_tiles: int | None = None,
+                        resume: bool = False, return_report: bool = False,
+                        device=None) -> TuckerResult:
+    """Single-pass streaming Tucker of a tensor that arrives as slabs along
+    axis 0 (``repro_torch.stream.tucker``).
+
+    ``slabs`` is anything ``stream.as_tile_source`` accepts, tiling axis 0
+    exactly; ``dims`` may be omitted when the source knows its shape.  Slabs
+    are prefetched to ``device`` (``prefetch_depth=None`` disables); at most
+    ``prefetch_depth + 1`` slabs live beside the O(sum_i I_i.J_i) sketch
+    state, and the per-mode Omega_i is regenerated block-wise in kernel 2
+    (or contracted factor by factor with ``dist="khatri_rao"``).
+
+    Adaptive ranks (``tol=..., max_ranks=...``): sketch once at the per-mode
+    ceilings and let :func:`truncate_tucker` pick each mode's rank at
+    finalize.  ``checkpoint_dir=`` (with ``checkpoint_every_tiles``,
+    ``resume``, ``return_report``) raises NotImplementedError: ROADMAP item
+    12b.
+    """
+    from repro_torch import stream  # stream imports this module
+    from repro_torch.core.rsvd import (_check_checkpoint_args,
+                                       _checkpoint_not_ported)
+    if tol is not None:
+        if ranks is not None:
+            raise ValueError("pass either fixed ranks= or adaptive "
+                             "tol=+max_ranks=, not both")
+        if max_ranks is None:
+            raise ValueError("adaptive mode (tol=) needs max_ranks= — the "
+                             "per-mode sketch widths / rank ceilings")
+        if float(tol) <= 0.0:
+            raise ValueError(f"tol must be > 0, got {tol}")
+        ranks = tuple(int(r) for r in max_ranks)
+    elif max_ranks is not None:
+        raise ValueError("max_ranks only applies to adaptive (tol=...) "
+                         "runs")
+    if ranks is None:
+        raise TypeError("rp_sthosvd_streamed missing required ranks")
+    dev = resolve_device(device)
+    try:
+        src = stream.as_tile_source(
+            slabs, shape=tuple(int(d) for d in dims) if dims is not None
+            else None)
+    except ValueError as e:
+        if dims is None and "shape" in str(e):
+            raise ValueError(
+                "this slab stream cannot be inspected for its shape: pass "
+                "dims= (or stream from a TileSource/array/.npy path, "
+                "which knows its shape)") from e
+        raise
+    if dims is not None and tuple(int(d) for d in dims) != src.shape:
+        raise ValueError(f"dims={tuple(dims)} but the slab source has "
+                         f"shape {src.shape}")
+    dims = src.shape
+    _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
+                           return_report)
+    if checkpoint_dir is not None:
+        raise _checkpoint_not_ported()
+
+    ts = stream.tucker_init(key, dims, ranks, method=method, dist=dist,
+                            omega_dtype=omega_dtype, device=dev)
+    off = 0
+    for slab in stream.source_tiles(src, prefetch_depth=prefetch_depth,
+                                    device=dev):
+        stream.tucker_update(ts, slab, off)
+        off += slab.shape[0]
+    if off != dims[0]:
+        raise ValueError(f"slabs cover {off} rows of axis 0, expected "
+                         f"{dims[0]}")
+    res = stream.tucker_finalize(ts)
+    if tol is not None:
+        res = truncate_tucker(res, tol)
+    return res
 
 
 def truncate_tucker(res: TuckerResult, tol: float, *,

@@ -34,6 +34,7 @@ from typing import Literal
 
 import torch
 
+from repro_torch.core import structured as _sx
 from repro_torch.core.splitting import FP16_INV_SCALE, split_fp32, split_fp32_bf16_3
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kernels import ops
@@ -47,12 +48,6 @@ SketchDist = Literal["gaussian", "achlioptas", "very_sparse", "srht"]
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
-def _srht_not_ported():
-    return NotImplementedError(
-        "dist='srht' (and 'khatri_rao') needs core/structured.py, which is "
-        "not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Random matrix generation (all on the counter lattice; see module docstring)
 # ---------------------------------------------------------------------------
@@ -64,6 +59,14 @@ def gaussian(key, shape: tuple[int, int], dtype=torch.bfloat16,
     alpha_Y != 1, but the Halko bound is variance-invariant."""
     return _f.reference_omega(key, shape, dist="gaussian", dtype=dtype,
                               device=device)
+
+
+def gaussian_fp8(key, shape: tuple[int, int], variant: str = "e4m3",
+                 device=None) -> torch.Tensor:
+    """fp8-stored Gaussian matrix (1/4 the memory of an f32 Omega): storage
+    only, consumed as bf16 by ``project`` and kernel 2."""
+    dt = torch.float8_e4m3fn if variant == "e4m3" else torch.float8_e5m2
+    return gaussian(key, shape, dtype=dt, device=device)
 
 
 def achlioptas_sparse(key, shape: tuple[int, int], s: float = 3.0,
@@ -87,7 +90,9 @@ def materialize_omega(key, shape: tuple[int, int], *,
                       dist: SketchDist = "gaussian", s: float | None = None,
                       dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """The Omega ``sketch`` feeds to ``project`` for ``dist`` (non-fused
-    methods).  ``s`` overrides the sparse dists' sparsity."""
+    methods).  ``s`` overrides the sparse dists' sparsity.  For ``srht`` it
+    is the dense lattice oracle of ``core/structured.py``, the matrix the
+    O(n log n) apply path applies."""
     if dist == "gaussian":
         return gaussian(key, shape, dtype=dtype, device=device)
     if dist == "achlioptas":
@@ -96,7 +101,7 @@ def materialize_omega(key, shape: tuple[int, int], *,
     if dist == "very_sparse":
         return very_sparse(key, shape, s=s, dtype=dtype, device=device)
     if dist == "srht":
-        raise _srht_not_ported()
+        return _sx.srht_omega(key, shape, dtype=dtype, device=device)
     raise ValueError(f"unknown sketch distribution {dist!r}")
 
 
@@ -156,13 +161,16 @@ def sketch(key, a, p: int, *, method: ProjectionMethod = "shgemm",
     """Y = A @ Omega(key)[a.shape[1], p] without the caller materializing
     Omega: the key-based front door for rsvd, hosvd and lstsq.
 
-    ``method="shgemm_fused"`` generates Omega inside kernel 2; any other
-    method materializes it (``materialize_omega``) and calls ``project``.
+    ``dist="srht"`` runs the structured apply (sign flip + FWHT + gather,
+    ``core/structured.py``), O(n log n) adds and no GEMM, whatever the
+    method.  ``method="shgemm_fused"`` generates Omega inside kernel 2; any
+    other method materializes it (``materialize_omega``) and calls
+    ``project``.
     """
-    if dist in ("srht", "khatri_rao"):
-        raise _srht_not_ported()
     dev = resolve_device(device)
     a = on_device(a, dev)
+    if dist == "srht":
+        return _sx.srht_sketch(key, a, p, device=dev)
     if method == "shgemm_fused":
         return ops.shgemm_fused(a.to(torch.float32), key, p, dist=dist, s=s,
                                 omega_dtype=omega_dtype, device=dev)

@@ -1,12 +1,18 @@
 """Randomized SVD (paper Algorithm 1) with mixed-precision random projection
-(port of the one-shot part of ``repro/core/rsvd.py``).
+(port of ``repro/core/rsvd.py``).
 
 The random projection (line 1, the O(mnp) term) is the paper's target and
 runs through ``projection.sketch``; QR (line 2), B = Q^T A (line 3), the
 small SVD (line 4) and the back-projection (line 5) run in f32 through
 ``torch.linalg`` and ``torch.matmul`` (TF32 off), as the reference leaves
-them to XLA.  The test-matrix builders draw from an explicit
-``torch.Generator`` on the device where the matrix is wanted.
+them to XLA.  ``rsvd_streamed`` runs the same algorithm over row tiles of an
+out-of-core matrix (``repro_torch.stream``).  The test-matrix builders draw
+from an explicit ``torch.Generator`` on the device where the matrix is
+wanted.
+
+Departure from the reference: ``rsvd_streamed``'s checkpoint arguments
+(``checkpoint_dir=``, ``resume=``, ``return_report=``) wait for
+``stream/resilience.py``, ROADMAP Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import projection as proj
+from repro_torch.core import structured as _sx
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kernels.ref import dot_f32 as _dot
 
@@ -25,6 +32,26 @@ class SVDResult(NamedTuple):
     u: torch.Tensor      # (m, rank)
     s: torch.Tensor      # (rank,)
     vt: torch.Tensor     # (rank, n)
+
+
+class AdaptiveInfo(NamedTuple):
+    """Diagnostics of one adaptive ``rsvd_streamed(tol=...)`` run.
+    ``est_history`` holds the relative posterior error estimate after each
+    B pass (one entry per evaluated width); ``bound_history`` the matching
+    relative Halko Eq. (4) bound, None where the width leaves oversample < 2
+    and at every width for non-Gaussian families (``bound_reason`` says
+    why).  ``grown_sketch_bytes`` is what the widen passes wrote to Y,
+    ``full_resketch_bytes`` what re-sketching from scratch at each grown
+    width would have written."""
+    final_p: int
+    widen_passes: int
+    converged: bool
+    est_history: tuple
+    bound_history: tuple
+    grown_cols: int
+    grown_sketch_bytes: int
+    full_resketch_bytes: int
+    bound_reason: str | None = None
 
 
 def _check_rank(rank: int, m: int, n: int) -> None:
@@ -78,6 +105,281 @@ def range_finder(key, a, rank: int, *, oversample: int = 10,
                     omega_dtype=omega_dtype, device=dev)
     q, _ = torch.linalg.qr(y)
     return q
+
+
+def _checkpoint_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "checkpointed streamed jobs (checkpoint_dir=, resume=, "
+        "return_report=) need stream/resilience.py, which is not ported yet "
+        "(ROADMAP Queue 1 item 12b)")
+
+
+def _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
+                           return_report) -> None:
+    """The reference's checks of the checkpoint arguments; a checkpoint
+    directory itself raises until item 12b is ported."""
+    if checkpoint_dir is None:
+        if checkpoint_every_tiles is not None:
+            raise ValueError("checkpoint_every_tiles needs checkpoint_dir=")
+        if resume:
+            raise ValueError("resume=True needs checkpoint_dir= (there is "
+                             "nowhere to resume from)")
+        if return_report:
+            raise ValueError("return_report=True needs checkpoint_dir= "
+                             "(the report measures the checkpointed job)")
+
+
+def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
+                  n_cols: int | None = None, oversample: int = 10,
+                  passes: int = 2,
+                  method: proj.ProjectionMethod = "shgemm_fused",
+                  dist: proj.SketchDist = "gaussian",
+                  omega_dtype=torch.bfloat16, tile_callback=None,
+                  prefetch_depth: int | None = 1, tol: float | None = None,
+                  max_oversample: int | None = None,
+                  return_info: bool = False, checkpoint_dir=None,
+                  checkpoint_every_tiles: int | None = None,
+                  resume: bool = False, return_report: bool = False,
+                  device=None):
+    """Randomized SVD of an out-of-core matrix streamed as row tiles.
+
+    ``a_blocks`` is anything ``stream.as_tile_source`` accepts (a
+    ``TileSource``, an array, an ``.npy`` path or a directory of shards, a
+    sequence of row tiles, a zero-arg callable returning a fresh tile
+    iterator, or for ``passes=1`` a bare one-shot generator).
+    ``n_rows``/``n_cols`` may be omitted when the source knows its shape.
+    Tiles are prefetched to ``device`` (``prefetch_depth=None`` disables);
+    at most ``prefetch_depth + 1`` tiles of A live beside O((m+n).p) of
+    state.  With ``method="shgemm_fused"`` Omega never exists in device
+    memory and each tile's sketch rows equal the one-shot sketch's bit for
+    bit.
+
+    ``passes``: 1 finalizes from the (Y, W) sketches alone (Tropp et al.
+    2017); 2 sketches, orthonormalizes and replays once for B = Q^T A (as
+    ``rsvd(power_iters=0)`` up to f32 summation order); >= 3 runs streamed
+    power iteration (``passes = 2 + 2q`` is ``rsvd(power_iters=q)``'s
+    iteration; odd counts finalize from the column basis at no extra pass).
+
+    ``tile_callback(i, n_seen_rows)`` runs after each tile of the sketch
+    pass.
+
+    Adaptive mode (``tol=...``, ``passes=2`` only, replayable source): after
+    each B pass the rank-``rank`` truncation error is known exactly
+    (||A||^2 - sum_{i<=r} sigma_i(B)^2, relative to ||A||_F); while it
+    exceeds ``tol`` the sketch width doubles its oversampling, capped at
+    ``rank + max_oversample`` and min(m, n).  Kernel 2 widens incrementally
+    (``SketchState.widen``, only the new columns); other methods and SRHT
+    re-sketch at the new width.  ``return_info=True`` also returns an
+    :class:`AdaptiveInfo`.
+
+    ``checkpoint_dir=`` (with ``checkpoint_every_tiles``, ``resume``,
+    ``return_report``) raises NotImplementedError: ROADMAP item 12b.
+    """
+    from repro_torch import stream  # stream imports this module's results
+    if passes < 1:
+        raise ValueError(f"passes must be >= 1, got {passes}")
+    if tol is not None:
+        tol = float(tol)
+        if tol <= 0.0:
+            raise ValueError(f"tol must be > 0, got {tol}")
+        if passes != 2:
+            raise ValueError(
+                f"adaptive mode (tol=) owns the pass schedule — it runs "
+                f"2 + 2*(widen rounds) passes — so passes must stay at its "
+                f"default 2, got passes={passes}")
+    if max_oversample is not None:
+        if tol is None:
+            raise ValueError("max_oversample only applies to adaptive "
+                             "(tol=...) runs")
+        max_oversample = int(max_oversample)
+        if max_oversample < 0:
+            raise ValueError(f"max_oversample must be >= 0, got "
+                             f"{max_oversample}")
+    if return_info and tol is None:
+        raise ValueError("return_info=True only applies to adaptive "
+                         "(tol=...) runs")
+    _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
+                           return_report)
+    if checkpoint_dir is not None:
+        if tol is not None:
+            raise ValueError(
+                "checkpoint_dir is incompatible with adaptive mode (tol=): "
+                "the widen schedule is data-dependent, so a resumed run "
+                "could not prove it replays the identical pass sequence")
+        raise _checkpoint_not_ported()
+    dev = resolve_device(device)
+    shape = ((int(n_rows), int(n_cols))
+             if n_rows is not None and n_cols is not None else None)
+    try:
+        src = stream.as_tile_source(a_blocks, shape=shape)
+    except ValueError as e:
+        if shape is None and "shape" in str(e):
+            raise ValueError(
+                "this tile stream cannot be inspected for its shape: pass "
+                "BOTH n_rows= and n_cols= (or stream from a "
+                "TileSource/array/.npy path, which knows its shape)") from e
+        raise
+    if n_rows is not None and int(n_rows) != src.n_rows:
+        raise ValueError(f"n_rows={n_rows} but the tile source has "
+                         f"{src.n_rows} rows")
+    if n_cols is not None and int(n_cols) != src.n_cols:
+        raise ValueError(f"n_cols={n_cols} but the tile source has "
+                         f"{src.n_cols} columns")
+    n_rows, n_cols = src.n_rows, src.n_cols
+    if passes >= 2 and not src.replayable:
+        # fail before streaming, not hours into an out-of-core run
+        raise ValueError(
+            f"passes={passes} must replay the tile stream: pass a "
+            "replayable TileSource (array / memmap / directory-of-npy / "
+            "zero-arg factory) or a sequence of tiles (or use passes=1 "
+            "for the strict single-pass finalizer)")
+
+    def tiles():
+        off = 0
+        for i, blk in enumerate(stream.source_tiles(
+                src, prefetch_depth=prefetch_depth, device=dev)):
+            blk = on_device(blk, dev).to(torch.float32)
+            yield i, off, blk
+            off += blk.shape[0]
+        if off != n_rows:
+            raise ValueError(f"tiles cover {off} rows, expected {n_rows}")
+
+    _check_rank(rank, n_rows, n_cols)
+    minmn = min(n_rows, n_cols)
+    p_cap = minmn
+    if max_oversample is not None:
+        p_cap = min(p_cap, rank + max_oversample)
+    p_hat = min(rank + oversample, p_cap if tol is not None else minmn)
+
+    state = stream.init(key, n_cols, p_hat, max_rows=n_rows,
+                        left=(passes == 1), method=method, dist=dist,
+                        omega_dtype=omega_dtype, device=dev)
+    fro2 = torch.zeros((), dtype=torch.float32, device=dev)  # ||A||_F^2
+    for i, off, blk in tiles():
+        stream.update(state, blk, off)
+        if tol is not None:
+            fro2 = fro2 + torch.sum(torch.square(blk))
+        if tile_callback is not None:
+            tile_callback(i, off + blk.shape[0])
+    if passes == 1:
+        return stream.svd(state, rank)
+
+    def accumulate_b(q):
+        b = torch.zeros((q.shape[1], n_cols), dtype=torch.float32, device=dev)
+        for _, off, blk in tiles():                    # B = Q^T A, tiled
+            b += _dot(q[off:off + blk.shape[0]].T, blk)
+        return b
+
+    if tol is not None:
+        return _adaptive_rsvd(
+            stream, key, state, rank, tol=tol, p_cap=p_cap, fro2=fro2,
+            tiles=tiles, accumulate_b=accumulate_b, n_rows=n_rows,
+            n_cols=n_cols, method=method, dist=dist,
+            omega_dtype=omega_dtype, return_info=return_info, device=dev)
+
+    def accumulate_y(z):
+        # tiles cover the rows in order: Y = A.Z is the per-tile products
+        # stacked
+        return torch.cat([_dot(blk, z) for _, _, blk in tiles()], dim=0)
+
+    q = stream.range_basis(state)
+    del state                   # Y is not needed past Q: O((m+n).p) on the card
+    return streamed_power_factor(q, rank, passes, accumulate_b=accumulate_b,
+                                 accumulate_y=accumulate_y)
+
+
+def _adaptive_rsvd(stream, key, state, rank, *, tol, p_cap, fro2, tiles,
+                   accumulate_b, n_rows, n_cols, method, dist, omega_dtype,
+                   return_info, device):
+    """The widening loop behind ``rsvd_streamed(tol=...)``.  One B = Q^T A
+    replay per evaluated width gives the exact truncation error; while it
+    exceeds ``tol`` the sketch doubles its oversampling: through
+    ``SketchState.widen`` (only the new lattice columns) under kernel 2, by
+    re-sketching at the new width for the other methods and for SRHT (whose
+    entries scale with the total width).  The working state always equals a
+    fresh sketch at its width.  The Halko Eq. (4) diagnostic is reported for
+    ``dist="gaussian"`` only (``core.structured.ESTIMATOR_VALIDITY``)."""
+    fro2 = torch.clamp(fro2, min=0.0)
+    bound_ok = _sx.halko_bound_valid(dist)
+    est_hist, bound_hist = [], []
+    widen_passes = grown_cols = grown_bytes = full_bytes = 0
+    while True:
+        q = stream.range_basis(state)
+        b = accumulate_b(q)
+        u_b, sv, vt = torch.linalg.svd(b, full_matrices=False)
+        head2 = torch.sum(torch.square(sv[:rank]))
+        denom = torch.sqrt(torch.clamp(fro2, min=1e-30))
+        est = float(torch.sqrt(torch.clamp(fro2 - head2, min=0.0)) / denom)
+        est_hist.append(est)
+        s_now = state.p - rank
+        bound_hist.append(
+            float(halko_bound(torch.linalg.norm(sv[rank:]), rank, s_now)
+                  / denom) if bound_ok and s_now >= 2 else None)
+        converged = est <= tol
+        if converged or state.p >= p_cap:
+            break
+        extra = min(state.p, p_cap - state.p)   # double the width, capped
+        p_new = state.p + extra
+        if method == "shgemm_fused" and dist != "srht":
+            ext = state.widen(extra)            # only the new columns
+            for _, off, blk in tiles():
+                stream.update(ext, blk, off)
+            state = stream.hstack(state, ext)
+            grown_bytes += 4 * n_rows * extra
+        else:
+            state = stream.init(key, n_cols, p_new, max_rows=n_rows,
+                                method=method, dist=dist,
+                                omega_dtype=omega_dtype, device=device)
+            for _, off, blk in tiles():
+                stream.update(state, blk, off)
+            grown_bytes += 4 * n_rows * p_new
+        full_bytes += 4 * n_rows * p_new
+        grown_cols += extra
+        widen_passes += 1
+    u = _dot(q, u_b)
+    res = SVDResult(u[:, :rank], sv[:rank], vt[:rank, :])
+    if not return_info:
+        return res
+    return res, AdaptiveInfo(
+        final_p=state.p, widen_passes=widen_passes, converged=converged,
+        est_history=tuple(est_hist), bound_history=tuple(bound_hist),
+        grown_cols=grown_cols, grown_sketch_bytes=grown_bytes,
+        full_resketch_bytes=full_bytes,
+        bound_reason=_sx.bound_invalid_reason(dist))
+
+
+def streamed_power_factor(q, rank: int, passes: int, *, accumulate_b,
+                          accumulate_y) -> SVDResult:
+    """Multi-pass driver of streamed power iteration: alternate the row
+    basis Q (m, p) and the column basis Z (n, p), one stream over the tiles
+    a pass, from the orthonormal sketch basis ``q`` after pass 1.
+    B = Q^T A doubles as Z = A^T Q = B^T, so each half-step costs one pass;
+    an odd last pass factorizes from the column basis via A.Z = Q.R =>
+    A ~ Q R Z^T.  ``accumulate_b(q)`` streams once and returns B = Q^T A
+    (p, n); ``accumulate_y(z)`` streams once and returns Y = A.Z (m, p).
+    (The reference's resume hooks wait for ROADMAP item 12b.)
+    """
+    z = None
+    on_rows = True
+    for pass_idx in range(2, passes + 1):
+        last = pass_idx == passes
+        if on_rows:
+            b = accumulate_b(q)
+            if last:
+                u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+                u = _dot(q, u_b)
+                return SVDResult(u[:, :rank], s[:rank], vt[:rank, :])
+            z, _ = torch.linalg.qr(b.T)                # orth(A^T Q)
+        else:
+            y = accumulate_y(z)
+            if last:
+                q, r = torch.linalg.qr(y)
+                u_r, s, wt = torch.linalg.svd(r, full_matrices=False)
+                return SVDResult(_dot(q, u_r)[:, :rank], s[:rank],
+                                 _dot(wt, z.T)[:rank, :])
+            q, _ = torch.linalg.qr(y)
+        on_rows = not on_rows
+    raise AssertionError("unreachable")  # the loop returns on the last pass
 
 
 def projection_error(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,11 @@ A_exp and A_linear matrices and RP-HOSVD / RP-ST-HOSVD (Algorithm 2) on an
 Algorithm 3 tensor, each through the f32 baseline and the mixed-precision
 methods, with the reference's accuracy limits.
 
+The streamed and structured runs (``streamed_sketch``,
+``rsvd_streamed_error``, ``sthosvd_streamed_error``, ``low_rank_plus_noise``)
+drive the out-of-core path: row tiles through ``repro_torch.stream`` and
+kernel 2 at lattice offsets, SRHT and Khatri-Rao Omega.
+
 ``chip_smoke.py`` runs it at the paper's sizes on the card; the CPU tests
 run it at small sizes with ``device="cpu"``.
 """
@@ -11,11 +16,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import stream
 from repro_torch.convert import key_from_seed
 from repro_torch.core import hosvd, rsvd
 from repro_torch.device import resolve_device
 
 RSVD_METHODS = ("f32", "shgemm", "shgemm_pallas", "shgemm_fused")
+# The streamed path's methods: kernel 2 at lattice offsets, and kernel 1 on
+# a materialized Omega.
+STREAMED_METHODS = ("shgemm_fused", "shgemm_pallas")
 HOSVD_METHODS = ("f32", "shgemm_pallas", "shgemm_fused")
 HOSVD_ALGOS = {"rp_hosvd": hosvd.rp_hosvd, "rp_sthosvd": hosvd.rp_sthosvd}
 SPECTRA = {"exp": rsvd.singular_values_exp,
@@ -87,3 +96,57 @@ def check_errors(errors: dict[tuple[str, str, str], float]) -> list[str]:
             failures.append(f"{algo}/{case}/{method}: error {err:.3e} > "
                             f"limit {limit:.3e} (f32 {base:.3e})")
     return failures
+
+
+def streamed_sketch(key, source, p: int, *, left: bool = False,
+                    method: str = "shgemm_fused", prefetch_depth: int = 1,
+                    device=None) -> stream.SketchState:
+    """The sketch state of a matrix streamed from ``source`` (a TileSource)
+    in its row tiles, prefetched to ``device``."""
+    dev = resolve_device(device)
+    st = stream.init(key, source.n_cols, p, max_rows=source.n_rows, left=left,
+                     method=method, device=dev)
+    off = 0
+    for tile in stream.source_tiles(source, prefetch_depth=prefetch_depth,
+                                    device=dev):
+        stream.update(st, tile, off)
+        off += tile.shape[0]
+    return st
+
+
+def rsvd_streamed_error(a: torch.Tensor, source, cfg, method: str, key, *,
+                        passes: int = 2, rank: int | None = None,
+                        **kw) -> tuple[float, rsvd.SVDResult]:
+    """Relative reconstruction error of ``rsvd_streamed`` over ``source``
+    (the tiles of ``a``), with the result; ``kw`` goes to the driver
+    (``tol=``, ``return_info=``, ...): with ``return_info`` the result is
+    the (SVDResult, AdaptiveInfo) pair."""
+    out = rsvd.rsvd_streamed(key, source, rank or cfg.rank,
+                             oversample=cfg.oversample, passes=passes,
+                             method=method, device=a.device, **kw)
+    res = out[0] if kw.get("return_info") else out
+    return float(rsvd.reconstruction_error(a, res)), out
+
+
+def sthosvd_streamed_error(t: torch.Tensor, cfg, method: str, dist: str, key,
+                           *, slab_rows: int) -> float:
+    """Relative reconstruction error of ``rp_sthosvd_streamed`` over the
+    axis-0 slabs of ``t``."""
+    res = hosvd.rp_sthosvd_streamed(key, stream.ArraySource(t, slab_rows),
+                                    ranks=tuple(cfg.ranks), method=method,
+                                    dist=dist, device=t.device)
+    return float(hosvd.reconstruction_error(t, res))
+
+
+def low_rank_plus_noise(gen: torch.Generator, m: int, n: int, rank: int,
+                        noise: float) -> torch.Tensor:
+    """An (m, n) f32 matrix U diag(s) V^T + noise on ``gen.device``: rank
+    ``rank`` with s_i = 2^(-i/32), orthonormal-ish Gaussian factors, plus
+    i.i.d. noise of standard deviation ``noise`` per element."""
+    dev = gen.device
+    u = torch.randn((m, rank), generator=gen, device=dev) / m ** 0.5
+    v = torch.randn((rank, n), generator=gen, device=dev) / n ** 0.5
+    s = torch.exp2(-torch.arange(rank, dtype=torch.float32, device=dev) / 32)
+    a = (u * s) @ v
+    a += noise * torch.randn((m, n), generator=gen, device=dev)
+    return a

@@ -1,8 +1,42 @@
-"""Streaming sketches (the part of ``repro.stream`` the serving engine's KV
-compression needs): right-sketch ``SketchState`` with ``init``/``update``
-and the ``range_basis`` finalizer."""
+"""Streaming sketches (port of ``repro.stream``): single-pass, out-of-core
+RandNLA on kernel 2 at lattice offsets.
 
-from repro_torch.stream.finalize import range_basis
-from repro_torch.stream.state import SketchState, init, update
+State and algebra: ``state.py`` (``SketchState``, ``init``, ``update``,
+``update_cols``, ``merge``, ``widen`` + ``hstack``; key-based states for
+kernel 2 and SRHT, Omega-carrying ones for the other methods and the serving
+engine's heads-batched sketches).  Matrix finalizers: ``finalize.py``
+(``svd``, ``range_basis``, ``psi_times``).  Streaming Tucker: ``tucker.py``.
+Tile IO: ``source.py`` (array / memmap / directory / generator sources and
+the pinned-buffer prefetch to the card).
 
-__all__ = ["SketchState", "init", "update", "range_basis"]
+Consumers: ``core.rsvd.rsvd_streamed``, ``core.hosvd.rp_sthosvd_streamed``
+and ``serve.kv_compress``.  Not ported yet: the object-store source and
+``resilience.py`` (checkpointed jobs; ROADMAP Queue 1 item 12b),
+``merge_across_hosts`` with the distributed drivers (item 13), and
+``rolling.py`` (sliding-window sketches; item 16b).
+"""
+
+from repro_torch.stream.state import (SketchState, hstack, init, merge,
+                                      merge_across_hosts, update, update_cols)
+from repro_torch.stream.finalize import psi_times, range_basis, svd
+from repro_torch.stream.source import (ArraySource, DirectorySource,
+                                       GeneratorSource, MemmapSource,
+                                       TileSource, as_tile_source,
+                                       check_shard_name_order, prefetch,
+                                       source_tiles)
+from repro_torch.stream.tucker import (TuckerSketch, tucker, tucker_finalize,
+                                       tucker_init, tucker_merge,
+                                       tucker_update)
+
+# ``stream.range(state)`` per the reference; range_basis is the shadow-free
+# name.
+range = range_basis  # noqa: A001
+
+__all__ = [
+    "SketchState", "init", "update", "update_cols", "merge",
+    "merge_across_hosts", "hstack", "svd", "range", "range_basis",
+    "psi_times", "TileSource", "ArraySource", "MemmapSource",
+    "DirectorySource", "GeneratorSource", "check_shard_name_order",
+    "as_tile_source", "prefetch", "source_tiles", "TuckerSketch", "tucker",
+    "tucker_finalize", "tucker_init", "tucker_merge", "tucker_update",
+]

@@ -506,3 +506,103 @@ def test_engine_kernel_path_matches_plain_path_smoke(act):
     assert res["comp_len"][0] == res["comp_len"][1]
     assert (kern._kv_comp_len > 0).all()
     assert k4.launches - before == res["steps"] * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The streamed path: kernels 1-2 at lattice offsets on the streamed shapes
+# ---------------------------------------------------------------------------
+
+STREAM_N, STREAM_P = 1024, 74            # n_cols and p of the streamed tests
+
+
+@pytest.mark.parametrize("case", ["row_tile", "widen", "left_on_grid",
+                                  "left_off_grid", "cols_tile"])
+def test_fused_at_streamed_offsets_matches_plain(gen, case):
+    """Kernel 2 where the stream runs it: a 256-row tile (col_offset 0 or
+    p_old), the left sketch A_tile^T . Psi^T at row offsets on and off its
+    bk grid, and a partial-width tile at a column offset."""
+    from repro_torch.stream import state as st_mod
+    a = _a(gen, 320, STREAM_N)
+    l = 2 * STREAM_P + 1
+    before = k2.launches
+    if case == "row_tile":
+        got = ops.shgemm_fused(a[:256], KEY, STREAM_P)
+        want = k2.shgemm_fused_plain(a[:256], KEY, STREAM_P)
+    elif case == "widen":
+        got = ops.shgemm_fused(a[:256], KEY, 10, col_offset=STREAM_P)
+        want = k2.shgemm_fused_plain(a[:256], KEY, 10, col_offset=STREAM_P)
+    elif case == "left_on_grid":
+        got = st_mod.fused_at_row_offset(a[:256].T, KEY, l, 768)
+        want = k2.shgemm_fused_plain(a[:256].T, KEY, l, row_offset=768)
+    elif case == "left_off_grid":
+        got = st_mod.fused_at_row_offset(a.T, KEY, l, 320)
+        want = k2.shgemm_fused_plain(a.T, KEY, l, row_offset=320)
+    else:
+        got = st_mod.fused_at_row_offset(a[:, 100:612], KEY, STREAM_P, 100,
+                                         col_offset=3)
+        want = k2.shgemm_fused_plain(a[:, 100:612], KEY, STREAM_P,
+                                     row_offset=100, col_offset=3)
+    assert k2.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile", [256, 320, 1000])
+def test_streamed_rows_equal_oneshot_bitwise(gen, tile):
+    """Kernel 2's bits depend on bk, which depends on n_cols alone: streamed
+    row tiles (regular, ragged, from host memory through the pinned
+    prefetch) give the one-shot sketch's rows bit for bit, and a widened
+    state equals a fresh sketch at the grown width."""
+    from repro_torch import main_path, stream
+    from repro_torch.core import projection as proj
+    a = _a(gen, 2000, STREAM_N)
+    src = stream.ArraySource(a.cpu(), tile)
+    st = main_path.streamed_sketch(KEY, src, STREAM_P, device="cuda")
+    assert torch.equal(st.y, proj.sketch(KEY, a, STREAM_P, method="shgemm_fused"))
+    ext = st.widen(9)
+    off = 0
+    for t in stream.source_tiles(src, device="cuda"):
+        stream.update(ext, t, off)
+        off += t.shape[0]
+    grown = stream.hstack(st, ext)
+    assert torch.equal(grown.y, proj.sketch(KEY, a, STREAM_P + 9,
+                                            method="shgemm_fused"))
+
+
+def test_streamed_left_sketch_matches_plain(gen):
+    from repro_torch import main_path, stream
+    a = _a(gen, 1000, STREAM_N)
+    st = main_path.streamed_sketch(KEY, stream.ArraySource(a, 320), STREAM_P,
+                                   left=True, device="cuda")
+    want = k2.shgemm_fused_plain(a.T, st.key_psi, st.l).T
+    torch.testing.assert_close(st.w, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_prefetch_tiles_equal_the_hosts(gen, tmp_path, depth):
+    """The pinned-buffer prefetch hands over CUDA tiles equal to the host's,
+    in order, ragged last tile and all, from numpy and from a memmap."""
+    import numpy as np
+    from repro_torch import stream
+    host = np.random.default_rng(depth).standard_normal((1000, 96)).astype(np.float32)
+    np.save(tmp_path / "a.npy", host)
+    for src in (stream.ArraySource(host, 128), stream.MemmapSource(tmp_path / "a.npy", 128)):
+        tiles = list(stream.prefetch(src.tiles(), depth=depth, device="cuda"))
+        assert all(t.device.type == "cuda" for t in tiles)
+        assert [t.shape[0] for t in tiles] == [128] * 7 + [104]
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(tiles).cpu(), torch.from_numpy(host))
+
+
+def test_streamed_rsvd_launches_kernels(gen):
+    """rsvd_streamed runs kernel 2 (shgemm_fused) or kernel 1
+    (shgemm_pallas) once per row tile of the sketch pass, and matches the
+    one-shot rsvd's singular values."""
+    from repro_torch import stream
+    from repro_torch.core import rsvd
+    a = _a(gen, 1024, 512)
+    for method, counter in (("shgemm_fused", k2), ("shgemm_pallas", k1)):
+        before = counter.launches
+        res = rsvd.rsvd_streamed(KEY, stream.ArraySource(a, 256), 16, method=method)
+        assert counter.launches - before == 4
+        want = rsvd.rsvd(KEY, a, 16, method=method)
+        torch.testing.assert_close(res.s, want.s, rtol=1e-4, atol=1e-6 * float(want.s[0]))

@@ -125,10 +125,17 @@ def test_make_test_tensor_has_the_padded_multilinear_rank():
         assert float(s[RANKS[mode] - 2]) < 1e-5 * float(s[0])
 
 
-def test_khatri_rao_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="structured.py"):
-        hosvd.rp_hosvd(key_from_seed(0), torch.ones((4, 4, 4)), (2, 2, 2),
-                       dist="khatri_rao", device="cpu")
+def test_khatri_rao_not_ported_yet(reference_keys, noisy_tensor):
+    """Khatri-Rao is ported (core/structured.py): RP-HOSVD through the
+    factor-by-factor mode sketches matches the reference."""
+    t = noisy_tensor
+    want = ref_hosvd.rp_hosvd(jax.random.PRNGKey(4), jnp.asarray(t), RANKS,
+                              dist="khatri_rao")
+    got = hosvd.rp_hosvd(key_from_seed(4), torch.from_numpy(t), RANKS,
+                         dist="khatri_rao", device="cpu")
+    np.testing.assert_allclose(
+        float(hosvd.reconstruction_error(torch.from_numpy(t), got)),
+        float(ref_hosvd.reconstruction_error(jnp.asarray(t), want)), rtol=1e-3)
 
 
 @pytest.mark.parametrize("method", ["shgemm", "shgemm_fused"])

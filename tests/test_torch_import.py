@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import main_path, stream
 from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
-from repro_torch.core import hosvd, lstsq, projection as proj, rsvd
+from repro_torch.core import hosvd, lstsq, projection as proj, rsvd, structured
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, shgemm_fused as kf
 from repro_torch.configs.base import smoke_config
@@ -119,6 +119,14 @@ ENTRY_POINTS = {
     "build_cache": lambda **d: cache_mod.build_cache(_SMOKE, 1, 4, **d),
     "build_kv_factors": lambda **d: cache_mod.build_kv_factors(_SMOKE, 1, 4, 2, **d),
     "stream.init": lambda **d: stream.init(_KEY, 4, 2, max_rows=4, **d),
+    "stream.init key-based": lambda **d: stream.init(
+        _KEY, 4, 2, max_rows=4, method="shgemm_fused", left=True, **d),
+    "tucker_init": lambda **d: stream.tucker_init(_KEY, (4, 4, 4), (2, 2, 2), **d),
+    "rsvd_streamed": lambda **d: rsvd.rsvd_streamed(_KEY, torch.ones((8, 6)), 2, **d),
+    "rp_sthosvd_streamed": lambda **d: hosvd.rp_sthosvd_streamed(
+        _KEY, torch.ones((4, 4, 4)), ranks=(2, 2, 2), **d),
+    "srht_sketch": lambda **d: structured.srht_sketch(_KEY, _A, 2, **d),
+    "prefetch": lambda **d: list(stream.prefetch(iter([_A]), **d)),
     "kv_sketch_init": lambda **d: kv_compress.kv_sketch_init(_KEY, 2, 16, 8, 4, **d),
     "ModelStep": lambda **d: ModelStep(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),

@@ -125,8 +125,9 @@ def test_append_errors():
         kv.kv_sketch_append(st, torch.zeros(2, 4, 16), 6)
     with pytest.raises(ValueError, match="n_heads, T, head_dim"):
         kv.kv_sketch_append(st, torch.zeros(4, 16), 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        stream.init(key_from_seed(1), 16, 4, max_rows=8, method="shgemm_fused")
+    with pytest.raises(ValueError, match="heads= batches Omega-carrying"):
+        stream.init(key_from_seed(1), 16, 4, max_rows=8, method="shgemm_fused",
+                    heads=2, device="cpu")
 
 
 class _RecordingEngine(Engine):

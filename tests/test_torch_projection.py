@@ -101,12 +101,20 @@ def test_generators_match_reference_lattice(name, dist, kw):
 
 @pytest.mark.parametrize("method", ["shgemm", "shgemm_fused"])
 def test_srht_not_ported_yet(method):
-    with pytest.raises(NotImplementedError, match="structured.py"):
-        proj.sketch(key_from_seed(0), torch.ones((8, 16)), 4, method=method,
-                    dist="srht", device="cpu")
-    with pytest.raises(NotImplementedError, match="structured.py"):
-        proj.materialize_omega(key_from_seed(0), (16, 4), dist="srht",
-                               device="cpu")
+    """SRHT is ported (core/structured.py): the sketch matches the
+    reference's whatever the method, and the dense Omega is its oracle."""
+    a = _a(8, 16)
+    got = proj.sketch(key_from_seed(0), torch.from_numpy(a), 4, method=method,
+                      dist="srht", device="cpu")
+    want = np.asarray(ref_proj.sketch(jax.random.PRNGKey(0), jnp.asarray(a), 4,
+                                      method=method, dist="srht"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    omega = proj.materialize_omega(key_from_seed(0), (16, 4), dist="srht",
+                                   device="cpu")
+    np.testing.assert_array_equal(
+        omega.float().numpy(),
+        np.asarray(ref_proj.materialize_omega(jax.random.PRNGKey(0), (16, 4),
+                                              dist="srht"), np.float32))
 
 
 def test_unknown_method_and_dist_raise():
