@@ -188,14 +188,9 @@ def rp_sthosvd_streamed(key, slabs, dims=None, ranks=None, *,
 
     ts = stream.tucker_init(key, dims, ranks, method=method, dist=dist,
                             omega_dtype=omega_dtype, device=dev)
-    off = 0
-    for slab in stream.source_tiles(src, prefetch_depth=prefetch_depth,
-                                    device=dev):
+    for off, slab in stream.offset_tiles(src, prefetch_depth=prefetch_depth,
+                                         device=dev):
         stream.tucker_update(ts, slab, off)
-        off += slab.shape[0]
-    if off != dims[0]:
-        raise ValueError(f"slabs cover {off} rows of axis 0, expected "
-                         f"{dims[0]}")
     res = stream.tucker_finalize(ts)
     if tol is not None:
         res = truncate_tucker(res, tol)

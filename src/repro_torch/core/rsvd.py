@@ -235,14 +235,9 @@ def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
             "for the strict single-pass finalizer)")
 
     def tiles():
-        off = 0
-        for i, blk in enumerate(stream.source_tiles(
+        for i, (off, blk) in enumerate(stream.offset_tiles(
                 src, prefetch_depth=prefetch_depth, device=dev)):
-            blk = on_device(blk, dev).to(torch.float32)
-            yield i, off, blk
-            off += blk.shape[0]
-        if off != n_rows:
-            raise ValueError(f"tiles cover {off} rows, expected {n_rows}")
+            yield i, off, on_device(blk, dev).to(torch.float32)
 
     _check_rank(rank, n_rows, n_cols)
     minmn = min(n_rows, n_cols)

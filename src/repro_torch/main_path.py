@@ -99,18 +99,14 @@ def check_errors(errors: dict[tuple[str, str, str], float]) -> list[str]:
 
 
 def streamed_sketch(key, source, p: int, *, left: bool = False,
-                    method: str = "shgemm_fused", prefetch_depth: int = 1,
                     device=None) -> stream.SketchState:
-    """The sketch state of a matrix streamed from ``source`` (a TileSource)
-    in its row tiles, prefetched to ``device``."""
+    """The kernel-2 sketch state of a matrix streamed from ``source`` (a
+    TileSource) in its row tiles, prefetched to ``device``."""
     dev = resolve_device(device)
     st = stream.init(key, source.n_cols, p, max_rows=source.n_rows, left=left,
-                     method=method, device=dev)
-    off = 0
-    for tile in stream.source_tiles(source, prefetch_depth=prefetch_depth,
-                                    device=dev):
+                     method="shgemm_fused", device=dev)
+    for off, tile in stream.offset_tiles(source, device=dev):
         stream.update(st, tile, off)
-        off += tile.shape[0]
     return st
 
 

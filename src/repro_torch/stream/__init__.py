@@ -22,8 +22,8 @@ from repro_torch.stream.finalize import psi_times, range_basis, svd
 from repro_torch.stream.source import (ArraySource, DirectorySource,
                                        GeneratorSource, MemmapSource,
                                        TileSource, as_tile_source,
-                                       check_shard_name_order, prefetch,
-                                       source_tiles)
+                                       check_shard_name_order,
+                                       offset_tiles, prefetch, source_tiles)
 from repro_torch.stream.tucker import (TuckerSketch, tucker, tucker_finalize,
                                        tucker_init, tucker_merge,
                                        tucker_update)
@@ -37,6 +37,7 @@ __all__ = [
     "merge_across_hosts", "hstack", "svd", "range", "range_basis",
     "psi_times", "TileSource", "ArraySource", "MemmapSource",
     "DirectorySource", "GeneratorSource", "check_shard_name_order",
-    "as_tile_source", "prefetch", "source_tiles", "TuckerSketch", "tucker",
-    "tucker_finalize", "tucker_init", "tucker_merge", "tucker_update",
+    "as_tile_source", "offset_tiles", "prefetch", "source_tiles",
+    "TuckerSketch", "tucker", "tucker_finalize", "tucker_init",
+    "tucker_merge", "tucker_update",
 ]

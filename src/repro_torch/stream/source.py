@@ -46,7 +46,7 @@ from repro_torch.device import resolve_device
 __all__ = [
     "TileSource", "ArraySource", "MemmapSource", "DirectorySource",
     "GeneratorSource", "as_tile_source", "check_shard_name_order",
-    "prefetch", "source_tiles",
+    "offset_tiles", "prefetch", "source_tiles",
 ]
 
 DEFAULT_TILE_ROWS = 256
@@ -412,3 +412,19 @@ def source_tiles(src: TileSource, *, prefetch_depth: Optional[int] = 1,
     if prefetch_depth is None:
         return iter(src.tiles())
     return prefetch(src.tiles(), depth=prefetch_depth, device=device)
+
+
+def offset_tiles(src: TileSource, *, prefetch_depth: Optional[int] = 1,
+                 device=None) -> Iterator[tuple[int, object]]:
+    """One pass over ``src`` as ``(row_offset, tile)`` pairs, the tiles as
+    :func:`source_tiles` gives them; raises ``ValueError`` after the last
+    tile if the tiles do not cover ``src.n_rows`` rows.  The tile loop of
+    every streamed driver (a port helper; the reference repeats the loop)."""
+    off = 0
+    for tile in source_tiles(src, prefetch_depth=prefetch_depth,
+                             device=device):
+        yield off, tile
+        off += int(tile.shape[0])
+    if off != src.n_rows:
+        raise ValueError(f"tiles cover {off} rows of axis 0, expected "
+                         f"{src.n_rows}")

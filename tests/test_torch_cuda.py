@@ -559,10 +559,8 @@ def test_streamed_rows_equal_oneshot_bitwise(gen, tile):
     st = main_path.streamed_sketch(KEY, src, STREAM_P, device="cuda")
     assert torch.equal(st.y, proj.sketch(KEY, a, STREAM_P, method="shgemm_fused"))
     ext = st.widen(9)
-    off = 0
-    for t in stream.source_tiles(src, device="cuda"):
+    for off, t in stream.offset_tiles(src, device="cuda"):
         stream.update(ext, t, off)
-        off += t.shape[0]
     grown = stream.hstack(st, ext)
     assert torch.equal(grown.y, proj.sketch(KEY, a, STREAM_P + 9,
                                             method="shgemm_fused"))

@@ -52,11 +52,9 @@ def _sources(matrix, disk):
 
 def _sketch(src, method):
     st = stream.init(KEY, N, 8, max_rows=M, method=method, device="cpu")
-    off = 0
-    for tile in stream.source_tiles(src, device="cpu"):
+    for off, tile in stream.offset_tiles(src, device="cpu"):
         stream.update(st, tile, off)
-        off += tile.shape[0]
-    assert off == M
+    assert st.rows_seen == M
     return st.y
 
 
@@ -211,6 +209,22 @@ def test_source_tiles_without_prefetch_passes_tiles_through(matrix):
                                      prefetch_depth=None))
     assert all(isinstance(t, np.ndarray) for t in tiles)
     assert src_mod.DEFAULT_TILE_ROWS == 256
+
+
+def test_offset_tiles_pairs_each_tile_with_its_row_offset(matrix):
+    pairs = list(stream.offset_tiles(stream.ArraySource(matrix, TILE),
+                                     device="cpu"))
+    assert [off for off, _ in pairs] == [0, 32, 64, 96]
+    for off, tile in pairs:
+        np.testing.assert_array_equal(tile.numpy(), matrix[off:off + TILE])
+
+
+def test_offset_tiles_refuses_tiles_that_miss_rows(matrix):
+    short = stream.GeneratorSource(
+        lambda: (matrix[i:i + TILE] for i in range(0, M, TILE)), (M + 1, N))
+    with pytest.raises(ValueError, match=f"cover {M} rows of axis 0, "
+                                         f"expected {M + 1}"):
+        list(stream.offset_tiles(short, device="cpu"))
 
 
 def test_prefetch_stress_keeps_order_under_frequent_switches():
