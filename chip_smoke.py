@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 240 s on an H100, the build included).
+(about 290 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -65,7 +65,17 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    against the resident rSVD, GB/s a pass, device busy share); SRHT against
    its dense oracle with no GEMM in its trace, timed beside kernel 2;
    Khatri-Rao RP-HOSVD and streamed Tucker on 256^3; kernels 1-2's launches
-   on the streamed path; streamed against resident timings.
+   on the streamed path; streamed against resident timings;
+10. checkpointed, resumed and elastic jobs (``stream.resilience``): the
+   checkpointed ``rsvd_streamed`` bit for bit against the plain one (kernels
+   2 and 1, passes 2 and 4) with its wall-time ratio; a raised fault in the
+   sketch, B and power passes, each resumed bit for bit; the 1 GiB matrix
+   of phase 9 streamed by a child process that SIGKILLs itself at tile 150
+   and resumed here bit for bit (time to recover, goodput); the same matrix
+   as 4096-row shards behind ``ObjectStoreSource`` with 2 % of its range
+   reads failing and retried, bit for bit (GB/s a pass); the elastic
+   rSVD losing one of four hosts bit for bit against the full fleet; a
+   streamed Tucker resumed after a fault bit for bit; kernel 2's launches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1123,6 +1133,295 @@ def phase9_streamed(torch, dev, card) -> dict:
                        "streamed_lowp": e_st_lowp}}
 
 
+# Phase 10: checkpointed, resumed and elastic jobs on the card.
+RESIL_EVERY = 4            # 10a-b: a checkpoint every 4 of A_exp's 16 tiles
+RESIL_FAULTS = {           # 10b: where the raised fault fires (tiles count
+    "sketch": (2, 6),      # across passes; 16 a pass), by passes
+    "B": (2, 16 + 9),
+    "power": (4, 2 * 16 + 5)}
+OOC_EVERY = 32             # 10c: a checkpoint every 32 of 256 tiles
+OOC_KILL_AT = 150          # 10c: the child SIGKILLs itself at this tile
+SHARD_ROWS = 4096          # 10d: 16 shards and a manifest.json
+FLAKY_RATE, FLAKY_SEED = 0.02, 3
+ELASTIC_HOSTS, ELASTIC_LOST, ELASTIC_AFTER = 4, 2, 2
+TUCKER_EVERY, TUCKER_FAULT = 2, 5
+# The child of 10c: the out-of-core job, killed by its own tile source.
+KILL_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from repro_torch import main_path\n"
+    "from repro_torch.convert import key_from_seed\n"
+    "main_path.memmap_rsvd_job(key_from_seed(int(sys.argv[2])), sys.argv[3],\n"
+    "    int(sys.argv[4]), tile_rows=int(sys.argv[5]), checkpoint_dir=sys.argv[6],\n"
+    "    checkpoint_every_tiles=int(sys.argv[7]), kill_at_tile=int(sys.argv[8]))\n")
+
+
+def same_bits(torch, x, y) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase10_resilience(torch, dev, card, ooc9: dict) -> dict:
+    """Checkpointed, resumed and elastic streamed jobs through kernel 2 (and
+    kernel 1 in 10a): every result bit for bit against its uninterrupted
+    run, with kernel 2's counts set to 0 before each run and read after."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch import main_path, stream
+    from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
+    from repro_torch.convert import key_from_seed
+    from repro_torch.core import hosvd, rsvd
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.stream import resilience as resil
+
+    t_phase = time.perf_counter()
+    seed = 7
+    key = key_from_seed(seed)
+    cfg, hcfg = PAPER_RSVD, PAPER_HOSVD
+    host = main_path.rsvd_inputs(cfg, device=dev)["exp"].cpu()
+    launches = {"shgemm": 0, "shgemm_fused": 0}
+
+    def counted(fn):
+        k1.launches = k1.reductions = 0
+        k2.launches = k2.reductions = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches["shgemm"] += k1.launches
+        launches["shgemm_fused"] += k2.launches
+        return out
+
+    def job(method, passes):
+        def run(src, **kw):
+            return rsvd.rsvd_streamed(key, src, cfg.rank,
+                                      oversample=cfg.oversample,
+                                      passes=passes, method=method, **kw)
+        return run
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = stream.ArraySource(host, STREAM_TILE)
+
+        # -- 10a. checkpointed == plain, bit for bit -----------------------
+        plain = {}
+        for method in main_path.STREAMED_METHODS:
+            for passes in (2, 4):
+                run = job(method, passes)
+                ckdir = tmp / f"a-{method}-{passes}"
+                want = counted(lambda: run(src))
+                got, rep = counted(lambda: run(
+                    src, checkpoint_dir=ckdir,
+                    checkpoint_every_tiles=RESIL_EVERY, return_report=True))
+                check(same_bits(torch, got, want), f"checkpointed rsvd_streamed "
+                      f"{method} passes={passes} != the plain run")
+                check(rep.attempts == 1 and rep.tiles_recomputed == 0,
+                      f"checkpointed run without a fault: {rep}")
+                ck_bytes = dir_bytes(sorted(ckdir.glob("ckpt_*"))[-1])
+                ms = interleaved_host_ms(torch, {
+                    "plain": lambda: run(src),
+                    "ckpt": lambda: run(src, checkpoint_dir=ckdir,
+                                        checkpoint_every_tiles=RESIL_EVERY)},
+                    3)
+                plain[(method, passes)] = want
+                out[("10a", method, passes)] = {
+                    "plain_ms": ms["plain"], "ckpt_ms": ms["ckpt"],
+                    "ratio": ms["ckpt"] / ms["plain"], "ckpt_bytes": ck_bytes}
+                print(f"[resil] 10a {method} passes={passes}, A_exp "
+                      f"{tuple(host.shape)} in 16 tiles of {STREAM_TILE} rows "
+                      f"from host memory, rank {cfg.rank}: checkpointed every "
+                      f"{RESIL_EVERY} tiles == plain bit for bit; wall "
+                      f"{ms['ckpt']:.3f} / {ms['plain']:.3f} ms = "
+                      f"{ms['ckpt'] / ms['plain']:.3f}x (median of 3, in "
+                      f"turns); one checkpoint {ck_bytes} B [{card}]")
+
+        # -- 10b. a raised fault in the sketch, B and power passes ---------
+        for phase, (passes, fail_at) in RESIL_FAULTS.items():
+            got, rep = counted(lambda: main_path.resume_after_fault(
+                job("shgemm_fused", passes), src, fail_at_tile=fail_at,
+                checkpoint_dir=tmp / f"b-{phase}",
+                checkpoint_every_tiles=RESIL_EVERY))
+            check(same_bits(torch, got, plain[("shgemm_fused", passes)]),
+                  f"resumed after a fault in the {phase} pass != the plain run")
+            check(rep.attempts == 2 and rep.tiles_recomputed <= RESIL_EVERY,
+                  f"fault in the {phase} pass: {rep}")
+            out[("10b", phase)] = rep.as_record()
+            print(f"[resil] 10b fault at tile {fail_at} ({phase} pass, passes="
+                  f"{passes}), resumed: == plain bit for bit; attempts "
+                  f"{rep.attempts}, tiles recomputed {rep.tiles_recomputed} "
+                  f"(<= {RESIL_EVERY}), goodput {rep.goodput:.4f}")
+
+        # -- 10c. SIGKILL out of core ---------------------------------------
+        m9, n9 = OOC_SHAPE
+        a_bytes = m9 * n9 * 4
+        big = main_path.low_rank_plus_noise(
+            torch.Generator(device=dev).manual_seed(99), m9, n9, OOC_RANK,
+            1e-6)
+        path = tmp / "a.npy"
+        np.save(path, big.cpu().numpy())
+        del big
+        torch.cuda.empty_cache()
+        mm = stream.MemmapSource(path, STREAM_TILE)
+
+        def ooc_plain():
+            return rsvd.rsvd_streamed(key, mm, OOC_RANK, oversample=10,
+                                      passes=2, method="shgemm_fused")
+
+        def ooc_job(name, **kw):
+            return main_path.memmap_rsvd_job(
+                key, path, OOC_RANK, tile_rows=STREAM_TILE,
+                checkpoint_dir=tmp / name, checkpoint_every_tiles=OOC_EVERY,
+                device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = counted(ooc_plain)
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, rep0 = counted(lambda: ooc_job("c-nofault"))
+        t_ckpt = time.perf_counter() - t0
+        check(same_bits(torch, got, want), "out-of-core checkpointed run != "
+              "the plain run")
+        ck_bytes = dir_bytes(sorted((tmp / "c-nofault").glob("ckpt_*"))[-1])
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", KILL_CHILD, str(ROOT / "src"), str(seed),
+             str(path), str(OOC_RANK), str(STREAM_TILE), str(tmp / "c-kill"),
+             str(OOC_EVERY), str(OOC_KILL_AT)],
+            capture_output=True, text=True, timeout=300)
+        t_child = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL, f"the child was not "
+              f"killed: rc {child.returncode}, {child.stderr[-2000:]}")
+        hb = json.loads((tmp / "c-kill" / "heartbeat.json").read_text())
+        on_disk = sorted((tmp / "c-kill").glob("ckpt_*"))
+        cursor = (json.loads((on_disk[-1] / "manifest.json").read_text())
+                  ["tiles_done"] if on_disk else 0)
+        t0 = time.perf_counter()
+        got, rep = counted(lambda: ooc_job("c-kill"))
+        t_resume = time.perf_counter() - t0
+        check(same_bits(torch, got, want), "out-of-core run resumed after "
+              "SIGKILL != the uninterrupted run")
+        check(rep.attempts == 2, f"resumed after SIGKILL: {rep}")
+        ev = rep.recovery_events[-1]
+        out["10c"] = {"plain_s": t_plain, "ckpt_s": t_ckpt,
+                      "ratio": t_ckpt / t_plain, "ckpt_bytes": ck_bytes,
+                      "child_s": t_child, "resume_s": t_resume,
+                      "cursor_at_kill": cursor,
+                      "heartbeat_tiles_at_kill": hb["tiles_done"],
+                      "report": rep.as_record()}
+        print(f"[resil] 10c out of core, {m9}x{n9} f32 ({a_bytes / 2**30:.0f} "
+              f"GiB) through MemmapSource in {m9 // STREAM_TILE} tiles, rank "
+              f"{OOC_RANK}, passes=2, shgemm_fused: checkpointed every "
+              f"{OOC_EVERY} tiles == plain bit for bit, {t_ckpt:.3f} / "
+              f"{t_plain:.3f} s = {t_ckpt / t_plain:.3f}x, one checkpoint "
+              f"{ck_bytes} B; child SIGKILLed at tile {OOC_KILL_AT} after "
+              f"{t_child:.1f} s (heartbeat at {hb['tiles_done']} tiles, newest "
+              f"checkpoint on disk at {cursor}); resumed here in "
+              f"{t_resume:.3f} s == uninterrupted bit for bit; attempts "
+              f"{rep.attempts}, tiles recomputed {rep.tiles_recomputed}, time "
+              f"to recover {ev['time_to_recover_s']:.3f} s, goodput "
+              f"{rep.goodput:.4f} [{card}]")
+
+        # -- 10d. object store: 4096-row shards behind range reads ---------
+        shards = tmp / "shards"
+        pipeline.write_matrix_shards(shards, np.load(path, mmap_mode="r"),
+                                     SHARD_ROWS)
+        retries = [0]
+
+        def sleep(secs):
+            retries[0] += 1
+            time.sleep(secs)
+        flaky = resil.FlakyRangeFetcher(stream.FileRangeFetcher(),
+                                        rate=FLAKY_RATE, seed=FLAKY_SEED)
+        osrc = stream.ObjectStoreSource(
+            shards / "manifest.json", STREAM_TILE, fetcher=flaky,
+            retry=stream.RetryPolicy(max_attempts=4, base_delay=1e-3,
+                                     max_delay=1e-2, sleep=sleep))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = counted(lambda: rsvd.rsvd_streamed(
+            key, osrc, OOC_RANK, oversample=10, passes=2,
+            method="shgemm_fused"))
+        t_os = time.perf_counter() - t0
+        check(same_bits(torch, got, want), "ObjectStoreSource run != the "
+              "MemmapSource run")
+        check(flaky.injected > 0 and retries[0] == flaky.injected,
+              f"{retries[0]} retried reads for {flaky.injected} injected "
+              f"faults")
+        shutil.rmtree(shards)
+        out["10d"] = {"wall_s": t_os, "gb_per_s_a_pass": a_bytes / (t_os / 2)
+                      / 1e9, "reads": flaky.reads, "injected": flaky.injected,
+                      "retries": retries[0]}
+        print(f"[resil] 10d {m9 // SHARD_ROWS} shards of {SHARD_ROWS} rows + "
+              f"manifest.json through ObjectStoreSource (FileRangeFetcher in "
+              f"FlakyRangeFetcher rate {FLAKY_RATE}, seed {FLAKY_SEED}): == "
+              f"MemmapSource bit for bit; {flaky.reads} range reads, "
+              f"{flaky.injected} faults injected, {retries[0]} retried; "
+              f"{t_os:.3f} s wall, {out['10d']['gb_per_s_a_pass']:.2f} GB/s "
+              f"of A a pass (phase 9 MemmapSource "
+              f"{ooc9['gb_per_s_a_pass']:.2f}) [{card}]")
+
+    # -- 10e. elastic: one of four hosts lost ------------------------------
+    rows = host.shape[0] // ELASTIC_HOSTS
+    hosts = [stream.ArraySource(host[h * rows:(h + 1) * rows], STREAM_TILE)
+             for h in range(ELASTIC_HOSTS)]
+    fleet = counted(lambda: resil.elastic_distributed_rsvd_streamed(
+        key, hosts, cfg.rank, oversample=cfg.oversample))
+    got, rep = counted(lambda: resil.elastic_distributed_rsvd_streamed(
+        key, hosts, cfg.rank, oversample=cfg.oversample,
+        lose_hosts=(ELASTIC_LOST,), lose_after_tiles=ELASTIC_AFTER,
+        return_report=True))
+    check(same_bits(torch, got, fleet), "elastic rSVD after a host loss != "
+          "the full fleet")
+    whole = plain[("shgemm_fused", 2)]
+    check(svals_close(torch, fleet.s, whole.s), "elastic rSVD singular values "
+          "!= rsvd_streamed on the whole matrix")
+    out["10e"] = rep.as_record()
+    print(f"[resil] 10e elastic rSVD over {ELASTIC_HOSTS} hosts of {rows} rows, "
+          f"host {ELASTIC_LOST} lost after {ELASTIC_AFTER} tiles: == full fleet "
+          f"bit for bit; singular values == rsvd_streamed's on the whole "
+          f"matrix (bit for bit: {same_bits(torch, fleet, whole)}); tiles "
+          f"recomputed {rep.tiles_recomputed}, goodput {rep.goodput:.4f}; "
+          f"events {rep.recovery_events}")
+
+    # -- 10f. streamed Tucker, a fault at slab 5 ---------------------------
+    t = main_path.hosvd_input(hcfg, device=dev)
+    tsrc = stream.ArraySource(t, TUCKER_SLAB)
+
+    def tucker(src, **kw):
+        return hosvd.rp_sthosvd_streamed(key, src, ranks=tuple(hcfg.ranks),
+                                         method="shgemm_fused", **kw)
+    want = counted(lambda: tucker(tsrc))
+    with tempfile.TemporaryDirectory() as tmp:
+        got, rep = counted(lambda: main_path.resume_after_fault(
+            tucker, tsrc, fail_at_tile=TUCKER_FAULT, checkpoint_dir=tmp,
+            checkpoint_every_tiles=TUCKER_EVERY))
+    check(torch.equal(got.core, want.core)
+          and same_bits(torch, got.factors, want.factors),
+          "streamed Tucker resumed after a fault != the uninterrupted run")
+    check(rep.attempts == 2 and rep.tiles_recomputed <= TUCKER_EVERY,
+          f"streamed Tucker resumed: {rep}")
+    out["10f"] = rep.as_record()
+    print(f"[resil] 10f rp_sthosvd_streamed {tuple(hcfg.dims)} in "
+          f"{hcfg.dims[0] // TUCKER_SLAB} slabs, ranks {tuple(hcfg.ranks)}, "
+          f"checkpointed every {TUCKER_EVERY}, fault at slab {TUCKER_FAULT}, "
+          f"resumed: == uninterrupted bit for bit; tiles recomputed "
+          f"{rep.tiles_recomputed}")
+    print(f"[resil] launches in phase 10 (counts set to 0 before each run, "
+          f"read after): {launches}")
+    check(launches["shgemm_fused"] > 0 and launches["shgemm"] > 0,
+          f"a kernel of phase 10 was never launched: {launches}")
+    print(f"[resil] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1483,6 +1782,9 @@ def main() -> int:
     # -- 9. the streamed and structured main path --------------------------
     stream9 = phase9_streamed(torch, dev, card)
 
+    # -- 10. checkpointed, resumed and elastic jobs ------------------------
+    resil10 = phase10_resilience(torch, dev, card, stream9["ooc"])
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -1501,6 +1803,7 @@ def main() -> int:
         rec["per_shape"] = per_shape[rec["name"]]
         rec["streamed_launches"] = stream9["launches"][rec["name"]]
         rec["streamed_max_abs_err"] = stream9["errs"][rec["name"]]
+        rec["resilience_launches"] = resil10["launches"][rec["name"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

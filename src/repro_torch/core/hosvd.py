@@ -10,12 +10,13 @@ Documented deviation: the reference derives the per-mode keys with
 ``jax.random.split(key, ndim)``, which torch cannot reproduce.  The port
 derives them in ``_mode_keys`` by counter-hashing the key words with the
 mode index on stream 6 of the fused kernel's lattice (a stream no
-distribution uses).  ``rp_sthosvd_streamed``'s checkpoint arguments wait for
-``stream/resilience.py``, ROADMAP Queue 1 item 12b.
+distribution uses).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -143,13 +144,19 @@ def rp_sthosvd_streamed(key, slabs, dims=None, ranks=None, *,
 
     Adaptive ranks (``tol=..., max_ranks=...``): sketch once at the per-mode
     ceilings and let :func:`truncate_tucker` pick each mode's rank at
-    finalize.  ``checkpoint_dir=`` (with ``checkpoint_every_tiles``,
-    ``resume``, ``return_report``) raises NotImplementedError: ROADMAP item
-    12b.
+    finalize.
+
+    Fault tolerance (``checkpoint_dir=...``): the job is one slab pass over
+    a TuckerSketch, checkpointed with its slab cursor every
+    ``checkpoint_every_tiles`` slabs (default 16); ``resume=True`` goes on
+    from the last checkpoint and the result equals the uninterrupted run's
+    bit for bit (the replay keeps the slab order).  ``tol=`` composes with
+    it: the widths are fixed at init.  A fault that raises reaches the
+    caller after the pending checkpoint writes are on disk.
+    ``return_report=True`` returns ``(TuckerResult, ResilienceReport)``.
     """
     from repro_torch import stream  # stream imports this module
-    from repro_torch.core.rsvd import (_check_checkpoint_args,
-                                       _checkpoint_not_ported)
+    from repro_torch.core.rsvd import _check_checkpoint_args
     if tol is not None:
         if ranks is not None:
             raise ValueError("pass either fixed ranks= or adaptive "
@@ -183,18 +190,68 @@ def rp_sthosvd_streamed(key, slabs, dims=None, ranks=None, *,
     dims = src.shape
     _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
                            return_report)
+    ck = None
     if checkpoint_dir is not None:
-        raise _checkpoint_not_ported()
+        from repro_torch.stream import resilience as resil
+        if not src.replayable:
+            raise ValueError(
+                "checkpoint_dir needs a replayable slab source: resuming "
+                "replays the slab suffix after the checkpointed cursor, "
+                "which a one-shot generator cannot provide")
+        fingerprint = {
+            "job": "rp_sthosvd_streamed",
+            "key": resil.key_fingerprint(key),
+            "dims": [int(d) for d in dims],
+            "ranks": [int(r) for r in ranks],
+            "method": str(method), "dist": str(dist),
+            "omega_dtype": resil.dtype_name(omega_dtype),
+            **resil.omega_fingerprint(method),
+        }
+        ck = resil.SketchJobCheckpointer(
+            checkpoint_dir,
+            every_tiles=(16 if checkpoint_every_tiles is None
+                         else checkpoint_every_tiles),
+            fingerprint=fingerprint, resume=resume)
 
-    ts = stream.tucker_init(key, dims, ranks, method=method, dist=dist,
-                            omega_dtype=omega_dtype, device=dev)
-    for off, slab in stream.offset_tiles(src, prefetch_depth=prefetch_depth,
-                                         device=dev):
-        stream.tucker_update(ts, slab, off)
-    res = stream.tucker_finalize(ts)
-    if tol is not None:
-        res = truncate_tucker(res, tol)
-    return res
+    with ck if ck is not None else contextlib.nullcontext():
+        tiles_done = rows_done = 0
+        restored = ck.restore() if ck is not None else None
+        if restored is not None:
+            if restored.phase != "tucker":
+                raise RuntimeError(f"checkpoint under {checkpoint_dir} is "
+                                   f"in unknown phase {restored.phase!r}")
+            ts = resil.tucker_from_payload(restored.arrays, restored.meta,
+                                           device=dev)
+            tiles_done, rows_done = restored.tiles_done, restored.rows_done
+        else:
+            ts = stream.tucker_init(key, dims, ranks, method=method,
+                                    dist=dist, omega_dtype=omega_dtype,
+                                    device=dev)
+        t_last = time.perf_counter()
+        for off, slab in stream.offset_tiles(
+                src, prefetch_depth=prefetch_depth, device=dev,
+                start_row=rows_done):
+            stream.tucker_update(ts, slab, off)
+            tiles_done, rows_done = tiles_done + 1, off + int(slab.shape[0])
+            if ck is not None:
+                now = time.perf_counter()
+                ck.note_tile(now - t_last)
+                t_last = now
+                ck.tick(phase="tucker", pass_idx=1, tiles_done=tiles_done,
+                        rows_done=rows_done,
+                        payload=lambda: resil.tucker_to_payload(ts))
+        res = stream.tucker_finalize(ts)
+        if tol is not None:
+            res = truncate_tucker(res, tol)
+        if ck is None:
+            return res
+        # a last commit at the end of the stream: a rerun from it
+        # recomputes no slab
+        ck.commit(phase="tucker", pass_idx=1, tiles_done=tiles_done,
+                  rows_done=rows_done,
+                  payload=lambda: resil.tucker_to_payload(ts))
+        report = ck.finish(tiles_total=resil._count_tiles(src) or tiles_done)
+    return (res, report) if return_report else res
 
 
 def truncate_tucker(res: TuckerResult, tol: float, *,

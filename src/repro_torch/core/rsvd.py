@@ -6,18 +6,16 @@ runs through ``projection.sketch``; QR (line 2), B = Q^T A (line 3), the
 small SVD (line 4) and the back-projection (line 5) run in f32 through
 ``torch.linalg`` and ``torch.matmul`` (TF32 off), as the reference leaves
 them to XLA.  ``rsvd_streamed`` runs the same algorithm over row tiles of an
-out-of-core matrix (``repro_torch.stream``).  The test-matrix builders draw
-from an explicit ``torch.Generator`` on the device where the matrix is
-wanted.
-
-Departure from the reference: ``rsvd_streamed``'s checkpoint arguments
-(``checkpoint_dir=``, ``resume=``, ``return_report=``) wait for
-``stream/resilience.py``, ROADMAP Queue 1 item 12b.
+out-of-core matrix (``repro_torch.stream``), checkpointed and resumable
+through ``stream.resilience``.  The test-matrix builders draw from an
+explicit ``torch.Generator`` on the device where the matrix is wanted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import NamedTuple
 
 import torch
@@ -107,17 +105,10 @@ def range_finder(key, a, rank: int, *, oversample: int = 10,
     return q
 
 
-def _checkpoint_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "checkpointed streamed jobs (checkpoint_dir=, resume=, "
-        "return_report=) need stream/resilience.py, which is not ported yet "
-        "(ROADMAP Queue 1 item 12b)")
-
-
 def _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
                            return_report) -> None:
-    """The reference's checks of the checkpoint arguments; a checkpoint
-    directory itself raises until item 12b is ported."""
+    """The reference's checks of the checkpoint arguments without a
+    checkpoint directory."""
     if checkpoint_dir is None:
         if checkpoint_every_tiles is not None:
             raise ValueError("checkpoint_every_tiles needs checkpoint_dir=")
@@ -172,8 +163,21 @@ def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
     re-sketch at the new width.  ``return_info=True`` also returns an
     :class:`AdaptiveInfo`.
 
-    ``checkpoint_dir=`` (with ``checkpoint_every_tiles``, ``resume``,
-    ``return_report``) raises NotImplementedError: ROADMAP item 12b.
+    Fault tolerance (``checkpoint_dir=...``): the sketch state and a tile
+    cursor are checkpointed every ``checkpoint_every_tiles`` tiles (default
+    16; atomic, written by a background thread), so a job restarted with
+    ``resume=True`` goes on from its last checkpoint.  The cursor is a tile
+    boundary and the replay keeps the tile order, so the resumed result
+    equals the uninterrupted run's bit for bit, with at most
+    ``checkpoint_every_tiles`` tiles recomputed in the sketch and B passes
+    (power passes, ``passes >= 3``, checkpoint at pass boundaries: one pass
+    recomputed at worst).  ``resume=True`` on an empty directory is a fresh
+    start; ``resume=False`` clears the directory's earlier job; a checkpoint
+    of another key, rank, method or shape fails loudly (fingerprint
+    mismatch).  Needs a replayable source and refuses ``tol=``.  A fault
+    that raises reaches the caller after the pending checkpoint writes are
+    on disk.  ``return_report=True`` also returns a
+    ``stream.resilience.ResilienceReport``.
     """
     from repro_torch import stream  # stream imports this module's results
     if passes < 1:
@@ -200,13 +204,11 @@ def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
                          "(tol=...) runs")
     _check_checkpoint_args(checkpoint_dir, checkpoint_every_tiles, resume,
                            return_report)
-    if checkpoint_dir is not None:
-        if tol is not None:
-            raise ValueError(
-                "checkpoint_dir is incompatible with adaptive mode (tol=): "
-                "the widen schedule is data-dependent, so a resumed run "
-                "could not prove it replays the identical pass sequence")
-        raise _checkpoint_not_ported()
+    if checkpoint_dir is not None and tol is not None:
+        raise ValueError(
+            "checkpoint_dir is incompatible with adaptive mode (tol=): "
+            "the widen schedule is data-dependent, so a resumed run "
+            "could not prove it replays the identical pass sequence")
     dev = resolve_device(device)
     shape = ((int(n_rows), int(n_cols))
              if n_rows is not None and n_cols is not None else None)
@@ -234,10 +236,22 @@ def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
             "zero-arg factory) or a sequence of tiles (or use passes=1 "
             "for the strict single-pass finalizer)")
 
-    def tiles():
+    ck = None   # bound below; tiles() reads it through the closure
+
+    def tiles(start_tile=0, start_row=0):
+        # From a resume cursor the tiles are the exact suffix of the full
+        # tiling (same boundaries, same order), so every f32 sum downstream
+        # sees an uninterrupted run's operands.  A tile is timed from its
+        # request to the next one's: the consumer's absorption of it.
+        t_last = time.perf_counter()
         for i, (off, blk) in enumerate(stream.offset_tiles(
-                src, prefetch_depth=prefetch_depth, device=dev)):
+                src, prefetch_depth=prefetch_depth, device=dev,
+                start_row=start_row), start=start_tile):
             yield i, off, on_device(blk, dev).to(torch.float32)
+            if ck is not None:
+                now = time.perf_counter()
+                ck.note_tile(now - t_last)
+                t_last = now
 
     _check_rank(rank, n_rows, n_cols)
     minmn = min(n_rows, n_cols)
@@ -246,41 +260,152 @@ def rsvd_streamed(key, a_blocks, rank: int, *, n_rows: int | None = None,
         p_cap = min(p_cap, rank + max_oversample)
     p_hat = min(rank + oversample, p_cap if tol is not None else minmn)
 
-    state = stream.init(key, n_cols, p_hat, max_rows=n_rows,
-                        left=(passes == 1), method=method, dist=dist,
-                        omega_dtype=omega_dtype, device=dev)
-    fro2 = torch.zeros((), dtype=torch.float32, device=dev)  # ||A||_F^2
-    for i, off, blk in tiles():
-        stream.update(state, blk, off)
+    if checkpoint_dir is not None:
+        from repro_torch.stream import resilience as resil
+        if not src.replayable:
+            raise ValueError(
+                "checkpoint_dir needs a replayable tile source: resuming "
+                "replays the tile suffix after the checkpointed cursor, "
+                "which a one-shot generator cannot provide")
+        fingerprint = {
+            "job": "rsvd_streamed",
+            "key": resil.key_fingerprint(key),
+            "rank": int(rank), "p_hat": int(p_hat), "passes": int(passes),
+            "method": str(method), "dist": str(dist),
+            "omega_dtype": resil.dtype_name(omega_dtype),
+            "n_rows": int(n_rows), "n_cols": int(n_cols),
+            **resil.omega_fingerprint(method),
+        }
+        ck = resil.SketchJobCheckpointer(
+            checkpoint_dir,
+            every_tiles=(16 if checkpoint_every_tiles is None
+                         else checkpoint_every_tiles),
+            fingerprint=fingerprint, resume=resume)
+
+    def done(res):
+        if ck is None:
+            return res
+        report = ck.finish(
+            tiles_total=(resil._count_tiles(src) or 0) * passes)
+        return (res, report) if return_report else res
+
+    with ck if ck is not None else contextlib.nullcontext():
+        restored = ck.restore() if ck is not None else None
+        start_tile = start_row = 0
+        b_resume = power_resume = None
+        if restored is None:
+            state = stream.init(key, n_cols, p_hat, max_rows=n_rows,
+                                left=(passes == 1), method=method, dist=dist,
+                                omega_dtype=omega_dtype, device=dev)
+        elif restored.phase in ("sketch", "b"):
+            state = resil.state_from_payload(restored.arrays, restored.meta,
+                                             device=dev)
+            if restored.phase == "sketch":
+                start_tile, start_row = restored.tiles_done, restored.rows_done
+            else:
+                b_resume = (resil.array_to_tensor(restored.arrays["b"], dev),
+                            restored.tiles_done, restored.rows_done)
+        elif restored.phase == "power":
+            power_resume = restored
+        else:
+            raise RuntimeError(f"checkpoint under {checkpoint_dir} is in "
+                               f"unknown phase {restored.phase!r}")
+
+        fro2 = torch.zeros((), dtype=torch.float32, device=dev)  # ||A||_F^2
+        if b_resume is None and power_resume is None:
+            tiles_done, rows_done = start_tile, start_row
+            for i, off, blk in tiles(start_tile, start_row):
+                stream.update(state, blk, off)
+                if tol is not None:
+                    fro2 = fro2 + torch.sum(torch.square(blk))
+                if tile_callback is not None:
+                    tile_callback(i, off + blk.shape[0])
+                tiles_done, rows_done = i + 1, off + int(blk.shape[0])
+                if ck is not None:
+                    ck.tick(phase="sketch", pass_idx=1, tiles_done=tiles_done,
+                            rows_done=rows_done,
+                            payload=lambda: resil.state_to_payload(state))
+            if ck is not None:
+                # pass boundary: a resume never re-enters the sketch pass
+                ck.commit(phase="sketch", pass_idx=1, tiles_done=tiles_done,
+                          rows_done=rows_done,
+                          payload=lambda: resil.state_to_payload(state))
+        if passes == 1:
+            return done(stream.svd(state, rank))
+
+        def accumulate_b(q):
+            b = torch.zeros((q.shape[1], n_cols), dtype=torch.float32,
+                            device=dev)
+            for _, off, blk in tiles():                # B = Q^T A, tiled
+                b += _dot(q[off:off + blk.shape[0]].T, blk)
+            return b
+
         if tol is not None:
-            fro2 = fro2 + torch.sum(torch.square(blk))
-        if tile_callback is not None:
-            tile_callback(i, off + blk.shape[0])
-    if passes == 1:
-        return stream.svd(state, rank)
+            return _adaptive_rsvd(
+                stream, key, state, rank, tol=tol, p_cap=p_cap, fro2=fro2,
+                tiles=tiles, accumulate_b=accumulate_b, n_rows=n_rows,
+                n_cols=n_cols, method=method, dist=dist,
+                omega_dtype=omega_dtype, return_info=return_info, device=dev)
 
-    def accumulate_b(q):
-        b = torch.zeros((q.shape[1], n_cols), dtype=torch.float32, device=dev)
-        for _, off, blk in tiles():                    # B = Q^T A, tiled
-            b += _dot(q[off:off + blk.shape[0]].T, blk)
-        return b
+        if ck is not None and passes == 2 and power_resume is None:
+            # The B pass checkpoints a tile at a time: B's f32 sum depends
+            # on its order, so the partial B and the cursor are the
+            # checkpoint and the replay adds the same remaining terms.  Q is
+            # not stored: it is recomputed from the checkpointed state.
+            # The algebra of streamed_power_factor's last on-rows pass.
+            q = stream.range_basis(state)
+            if b_resume is not None:
+                b, tiles_done, rows_done = b_resume
+            else:
+                b = torch.zeros((q.shape[1], n_cols), dtype=torch.float32,
+                                device=dev)
+                tiles_done = rows_done = 0
 
-    if tol is not None:
-        return _adaptive_rsvd(
-            stream, key, state, rank, tol=tol, p_cap=p_cap, fro2=fro2,
-            tiles=tiles, accumulate_b=accumulate_b, n_rows=n_rows,
-            n_cols=n_cols, method=method, dist=dist,
-            omega_dtype=omega_dtype, return_info=return_info, device=dev)
+            def b_payload():
+                arrays, meta = resil.state_to_payload(state)
+                arrays["b"] = b            # commit copies it to the host
+                return arrays, meta
 
-    def accumulate_y(z):
-        # tiles cover the rows in order: Y = A.Z is the per-tile products
-        # stacked
-        return torch.cat([_dot(blk, z) for _, _, blk in tiles()], dim=0)
+            for i, off, blk in tiles(tiles_done, rows_done):
+                b += _dot(q[off:off + blk.shape[0]].T, blk)
+                tiles_done, rows_done = i + 1, off + int(blk.shape[0])
+                ck.tick(phase="b", pass_idx=2, tiles_done=tiles_done,
+                        rows_done=rows_done, payload=b_payload)
+            u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+            u = _dot(q, u_b)
+            return done(SVDResult(u[:, :rank], s[:rank], vt[:rank, :]))
 
-    q = stream.range_basis(state)
-    del state                   # Y is not needed past Q: O((m+n).p) on the card
-    return streamed_power_factor(q, rank, passes, accumulate_b=accumulate_b,
-                                 accumulate_y=accumulate_y)
+        def accumulate_y(z):
+            # tiles cover the rows in order: Y = A.Z is the per-tile
+            # products stacked
+            return torch.cat([_dot(blk, z) for _, _, blk in tiles()], dim=0)
+
+        on_pass_done = None
+        if ck is not None:
+            def on_pass_done(pass_idx, which, basis):
+                # power passes checkpoint at pass boundaries: each basis is
+                # a whole orthonormal factor, so a resume replays at most
+                # one pass
+                ck.commit(phase="power", pass_idx=pass_idx, tiles_done=0,
+                          rows_done=0,
+                          payload=lambda: ({"basis": basis},
+                                           {"power": {"which": which}}))
+
+        if power_resume is not None:
+            basis = resil.array_to_tensor(power_resume.arrays["basis"], dev)
+            which = power_resume.meta["power"]["which"]
+            return done(streamed_power_factor(
+                basis if which == "q" else None, rank, passes,
+                accumulate_b=accumulate_b, accumulate_y=accumulate_y,
+                start_pass=power_resume.pass_idx + 1,
+                z=basis if which == "z" else None,
+                start_on_rows=(which == "q"), on_pass_done=on_pass_done))
+
+        q = stream.range_basis(state)
+        del state               # Y is not needed past Q: O((m+n).p) on the card
+        return done(streamed_power_factor(
+            q, rank, passes, accumulate_b=accumulate_b,
+            accumulate_y=accumulate_y, on_pass_done=on_pass_done))
 
 
 def _adaptive_rsvd(stream, key, state, rank, *, tol, p_cap, fro2, tiles,
@@ -344,7 +469,9 @@ def _adaptive_rsvd(stream, key, state, rank, *, tol, p_cap, fro2, tiles,
 
 
 def streamed_power_factor(q, rank: int, passes: int, *, accumulate_b,
-                          accumulate_y) -> SVDResult:
+                          accumulate_y, start_pass: int = 2, z=None,
+                          start_on_rows: bool = True,
+                          on_pass_done=None) -> SVDResult:
     """Multi-pass driver of streamed power iteration: alternate the row
     basis Q (m, p) and the column basis Z (n, p), one stream over the tiles
     a pass, from the orthonormal sketch basis ``q`` after pass 1.
@@ -352,11 +479,22 @@ def streamed_power_factor(q, rank: int, passes: int, *, accumulate_b,
     an odd last pass factorizes from the column basis via A.Z = Q.R =>
     A ~ Q R Z^T.  ``accumulate_b(q)`` streams once and returns B = Q^T A
     (p, n); ``accumulate_y(z)`` streams once and returns Y = A.Z (m, p).
-    (The reference's resume hooks wait for ROADMAP item 12b.)
+
+    Resume hooks: each pass but the last ends in one orthonormal basis (Q
+    after an off-rows pass, Z after an on-rows pass), its successor's whole
+    state.  ``on_pass_done(pass_idx, which, basis)`` (``which`` in
+    ``{"q", "z"}``) hands it to a checkpointer; a resumed job re-enters the
+    schedule through ``start_pass`` and the saved basis (``q`` with
+    ``start_on_rows=True``, ``z`` with ``start_on_rows=False``), bit for bit
+    the uninterrupted schedule, as each pass is a function of its entry
+    basis and the tiles.
     """
-    z = None
-    on_rows = True
-    for pass_idx in range(2, passes + 1):
+    on_rows = start_on_rows
+    if on_rows and q is None:
+        raise ValueError("start_on_rows=True needs the row basis q")
+    if not on_rows and z is None:
+        raise ValueError("start_on_rows=False needs the column basis z")
+    for pass_idx in range(start_pass, passes + 1):
         last = pass_idx == passes
         if on_rows:
             b = accumulate_b(q)
@@ -365,6 +503,9 @@ def streamed_power_factor(q, rank: int, passes: int, *, accumulate_b,
                 u = _dot(q, u_b)
                 return SVDResult(u[:, :rank], s[:rank], vt[:rank, :])
             z, _ = torch.linalg.qr(b.T)                # orth(A^T Q)
+            on_rows = False
+            if on_pass_done is not None:
+                on_pass_done(pass_idx, "z", z)
         else:
             y = accumulate_y(z)
             if last:
@@ -373,7 +514,9 @@ def streamed_power_factor(q, rank: int, passes: int, *, accumulate_b,
                 return SVDResult(_dot(q, u_r)[:, :rank], s[:rank],
                                  _dot(wt, z.T)[:rank, :])
             q, _ = torch.linalg.qr(y)
-        on_rows = not on_rows
+            on_rows = True
+            if on_pass_done is not None:
+                on_pass_done(pass_idx, "q", q)
     raise AssertionError("unreachable")  # the loop returns on the last pass
 
 

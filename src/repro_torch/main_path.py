@@ -6,7 +6,9 @@ methods, with the reference's accuracy limits.
 The streamed and structured runs (``streamed_sketch``,
 ``rsvd_streamed_error``, ``sthosvd_streamed_error``, ``low_rank_plus_noise``)
 drive the out-of-core path: row tiles through ``repro_torch.stream`` and
-kernel 2 at lattice offsets, SRHT and Khatri-Rao Omega.
+kernel 2 at lattice offsets, SRHT and Khatri-Rao Omega.  The fault-tolerance
+runs (``resume_after_fault``, ``memmap_rsvd_job``) drive the checkpointed
+streamed drivers through ``stream.resilience``.
 
 ``chip_smoke.py`` runs it at the paper's sizes on the card; the CPU tests
 run it at small sizes with ``device="cpu"``.
@@ -20,6 +22,7 @@ from repro_torch import stream
 from repro_torch.convert import key_from_seed
 from repro_torch.core import hosvd, rsvd
 from repro_torch.device import resolve_device
+from repro_torch.stream.resilience import FaultInjected, FaultySource
 
 RSVD_METHODS = ("f32", "shgemm", "shgemm_pallas", "shgemm_fused")
 # The streamed path's methods: kernel 2 at lattice offsets, and kernel 1 on
@@ -146,3 +149,41 @@ def low_rank_plus_noise(gen: torch.Generator, m: int, n: int, rank: int,
     a = (u * s) @ v
     a += noise * torch.randn((m, n), generator=gen, device=dev)
     return a
+
+
+def resume_after_fault(job, source, *, fail_at_tile: int, checkpoint_dir,
+                       checkpoint_every_tiles: int):
+    """Run ``job(source, **checkpoint kwargs)`` (a checkpointed streamed
+    driver) with a ``FaultySource`` that raises at tile ``fail_at_tile``
+    (counted across passes), then resume it on ``source``; returns the
+    resumed run's ``(result, ResilienceReport)``.  Raises if the fault never
+    fired."""
+    kw = dict(checkpoint_dir=checkpoint_dir,
+              checkpoint_every_tiles=checkpoint_every_tiles, resume=True)
+    try:
+        job(FaultySource(source, fail_at_tile=fail_at_tile, mode="raise"),
+            **kw)
+    except FaultInjected:
+        pass
+    else:
+        raise RuntimeError(f"the fault at tile {fail_at_tile} never fired")
+    return job(source, return_report=True, **kw)
+
+
+def memmap_rsvd_job(key, path, rank: int, *, tile_rows: int, checkpoint_dir,
+                    checkpoint_every_tiles: int, kill_at_tile: int | None = None,
+                    device=None):
+    """The out-of-core job of the kill-and-resume runs: ``rsvd_streamed``
+    (kernel 2, passes=2, oversample 10) over the ``.npy`` file ``path``
+    through ``MemmapSource``, checkpointed under ``checkpoint_dir`` with
+    ``resume=True`` (so one call serves the first attempt and every retry).
+    ``kill_at_tile`` SIGKILLs the process at that tile (``FaultySource``
+    mode "kill").  Returns ``(SVDResult, ResilienceReport)``."""
+    src = stream.MemmapSource(path, tile_rows)
+    if kill_at_tile is not None:
+        src = FaultySource(src, fail_at_tile=kill_at_tile, mode="kill")
+    return rsvd.rsvd_streamed(key, src, rank, oversample=10, passes=2,
+                              method="shgemm_fused",
+                              checkpoint_dir=checkpoint_dir,
+                              checkpoint_every_tiles=checkpoint_every_tiles,
+                              resume=True, return_report=True, device=device)

@@ -6,14 +6,18 @@ State and algebra: ``state.py`` (``SketchState``, ``init``, ``update``,
 kernel 2 and SRHT, Omega-carrying ones for the other methods and the serving
 engine's heads-batched sketches).  Matrix finalizers: ``finalize.py``
 (``svd``, ``range_basis``, ``psi_times``).  Streaming Tucker: ``tucker.py``.
-Tile IO: ``source.py`` (array / memmap / directory / generator sources and
-the pinned-buffer prefetch to the card).
+Tile IO: ``source.py`` (array / memmap / directory / generator sources, the
+``tiles_from`` resume cursor and the pinned-buffer prefetch to the card) and
+``objectstore.py`` (the same contract over byte-range reads: local files,
+HTTP ``Range:``, ``manifest.json``).  Fault tolerance: ``resilience.py``
+(``SketchJobCheckpointer``, the checkpoint and resume of the streamed
+drivers; ``FaultySource`` / ``FlakyRangeFetcher`` fault injection;
+``elastic_distributed_rsvd_streamed``; ``ResilienceReport``).
 
 Consumers: ``core.rsvd.rsvd_streamed``, ``core.hosvd.rp_sthosvd_streamed``
-and ``serve.kv_compress``.  Not ported yet: the object-store source and
-``resilience.py`` (checkpointed jobs; ROADMAP Queue 1 item 12b),
-``merge_across_hosts`` with the distributed drivers (item 13), and
-``rolling.py`` (sliding-window sketches; item 16b).
+and ``serve.kv_compress``.  Not ported yet: ``merge_across_hosts`` with the
+distributed drivers (ROADMAP Queue 1 item 13) and ``rolling.py``
+(sliding-window sketches; item 16b).
 """
 
 from repro_torch.stream.state import (SketchState, hstack, init, merge,
@@ -24,9 +28,20 @@ from repro_torch.stream.source import (ArraySource, DirectorySource,
                                        TileSource, as_tile_source,
                                        check_shard_name_order,
                                        offset_tiles, prefetch, source_tiles)
+from repro_torch.stream.objectstore import (FileRangeFetcher,
+                                            HttpRangeFetcher,
+                                            ObjectStoreSource, RetryPolicy,
+                                            ShortReadError, read_npy_header)
 from repro_torch.stream.tucker import (TuckerSketch, tucker, tucker_finalize,
                                        tucker_init, tucker_merge,
                                        tucker_update)
+from repro_torch.stream.resilience import (FaultInjected, FaultySource,
+                                           FlakyRangeFetcher,
+                                           ResilienceReport,
+                                           RestoredCheckpoint,
+                                           SketchJobCheckpointer,
+                                           elastic_distributed_rsvd_streamed,
+                                           partition_rows, sketch_row_range)
 
 # ``stream.range(state)`` per the reference; range_basis is the shadow-free
 # name.
@@ -36,8 +51,14 @@ __all__ = [
     "SketchState", "init", "update", "update_cols", "merge",
     "merge_across_hosts", "hstack", "svd", "range", "range_basis",
     "psi_times", "TileSource", "ArraySource", "MemmapSource",
-    "DirectorySource", "GeneratorSource", "check_shard_name_order",
+    "DirectorySource", "GeneratorSource", "ObjectStoreSource",
+    "FileRangeFetcher", "HttpRangeFetcher", "RetryPolicy", "ShortReadError",
+    "read_npy_header", "check_shard_name_order",
     "as_tile_source", "offset_tiles", "prefetch", "source_tiles",
     "TuckerSketch", "tucker", "tucker_finalize", "tucker_init",
     "tucker_merge", "tucker_update",
+    "SketchJobCheckpointer", "RestoredCheckpoint", "ResilienceReport",
+    "FaultySource", "FaultInjected", "FlakyRangeFetcher",
+    "partition_rows", "sketch_row_range",
+    "elastic_distributed_rsvd_streamed",
 ]

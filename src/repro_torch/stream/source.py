@@ -10,9 +10,14 @@ over a fixed underlying array:
   * :class:`DirectorySource` -- a directory of ``.npy`` row shards in sorted
     filename order, each memmapped and re-tiled;
   * :class:`GeneratorSource` -- a zero-arg factory of fresh tile iterators
-    (replayable) or a bare one-shot iterator (not replayable).
+    (replayable) or a bare one-shot iterator (not replayable);
+  * ``stream.objectstore.ObjectStoreSource`` -- row shards behind byte-range
+    reads (local files or HTTP ``Range:`` requests, ``manifest.json``).
 
 All sources yield tiles in row order, tiling axis 0 exactly.
+``TileSource.tiles_from(start_row)`` is the resume cursor of checkpointed
+jobs: the suffix of ``tiles()`` from a tile boundary, with the same tile
+boundaries; the disk sources seek to it.
 
 :func:`prefetch` reads tiles on a background thread.  On a CUDA device it
 copies each one into a pinned host buffer and from there to the card with
@@ -22,10 +27,8 @@ pinned buffers, and a buffer is refilled only after the event of its last
 copy has completed.  On ``device="cpu"`` the copy step is skipped (the caller
 asked for the CPU) and tiles are handed over as CPU tensors.
 
-Departures from the reference: the object-store source (byte-range reads,
-``manifest.json``, HTTP) is not ported (ROADMAP item 12b), so
-``as_tile_source`` refuses URLs and ``.json`` manifests; ``prefetch`` takes a
-``device`` in place of ``to_device``.
+Departure from the reference: ``prefetch``, ``source_tiles`` and
+``offset_tiles`` take a ``device`` in place of ``to_device``.
 """
 
 from __future__ import annotations
@@ -104,8 +107,54 @@ class TileSource:
     def tiles(self) -> Iterator:
         raise NotImplementedError
 
+    def tiles_from(self, start_row: int) -> Iterator:
+        """Tiles from global row ``start_row`` on: exactly the suffix of
+        ``tiles()`` that starts there, with the same tile boundaries, so a
+        resumed sketch replays bit for bit.  ``start_row`` must be a tile
+        boundary of this source's tiling (else ValueError).  This base
+        version iterates ``tiles()`` and drops the prefix, paying its IO;
+        the disk sources seek."""
+        start = self._check_start(start_row)
+        if start == 0:
+            return self.tiles()
+
+        def gen():
+            off = 0
+            for tile in self.tiles():
+                b = int(tile.shape[0])
+                if off < start:
+                    if off + b > start:
+                        raise ValueError(_not_a_boundary(start, off, b))
+                    off += b
+                    continue
+                yield tile
+                off += b
+        return gen()
+
+    def _check_start(self, start_row: int) -> int:
+        start = int(start_row)
+        if not 0 <= start <= self.n_rows:
+            raise ValueError(f"start_row={start} out of range for a source "
+                             f"with {self.n_rows} rows")
+        return start
+
+    def _check_fixed_grid(self, start_row: int) -> int:
+        """``start_row`` checked against a ``tile_rows`` grid from row 0."""
+        start = self._check_start(start_row)
+        if start % self.tile_rows and start != self.n_rows:
+            raise ValueError(_not_a_boundary(
+                start, start - start % self.tile_rows, self.tile_rows))
+        return start
+
     def __iter__(self) -> Iterator:
         return self.tiles()
+
+
+def _not_a_boundary(start: int, off: int, width: int) -> str:
+    return (f"start_row={start} is not a tile boundary (falls inside the "
+            f"tile covering rows [{off}, {off + width})) — resume cursors "
+            f"must land exactly between tiles so the replayed suffix keeps "
+            f"the original tile boundaries")
 
 
 def _chunk(array, tile_rows: int) -> Iterator:
@@ -134,6 +183,10 @@ class ArraySource(TileSource):
     def tiles(self) -> Iterator:
         return _chunk(self._array, self.tile_rows)
 
+    def tiles_from(self, start_row: int) -> Iterator:
+        start = self._check_fixed_grid(start_row)
+        return _chunk(self._array[start:], self.tile_rows)
+
 
 def _load_header(path: Path):
     arr = np.load(path, mmap_mode="r")
@@ -155,8 +208,12 @@ class MemmapSource(TileSource):
         self.shape = tuple(int(s) for s in _load_header(self.path).shape)
 
     def tiles(self) -> Iterator:
+        return self.tiles_from(0)
+
+    def tiles_from(self, start_row: int) -> Iterator:
+        start = self._check_fixed_grid(start_row)
         mm = np.load(self.path, mmap_mode="r")
-        return (np.array(t) for t in _chunk(mm, self.tile_rows))
+        return (np.array(t) for t in _chunk(mm[start:], self.tile_rows))
 
 
 class DirectorySource(TileSource):
@@ -173,7 +230,8 @@ class DirectorySource(TileSource):
         if not self.files:
             raise ValueError(f"no {pattern} shards in {self.path}")
         check_shard_name_order([f.name for f in self.files])
-        rows, trailing = 0, None
+        trailing = None
+        self.shard_rows: list[int] = []
         for f in self.files:
             hdr = _load_header(f)
             if trailing is None:
@@ -182,14 +240,31 @@ class DirectorySource(TileSource):
                 raise ValueError(
                     f"shard {f.name} has trailing shape {hdr.shape[1:]}, "
                     f"expected {trailing} (all shards must agree)")
-            rows += hdr.shape[0]
-        self.shape = (rows,) + tuple(int(s) for s in trailing)
+            self.shard_rows.append(int(hdr.shape[0]))
+        self.shape = (sum(self.shard_rows),) + tuple(int(s) for s in trailing)
 
     def tiles(self) -> Iterator:
-        for f in self.files:
-            mm = np.load(f, mmap_mode="r")
-            for t in _chunk(mm, self.tile_rows):
-                yield np.array(t)
+        return self.tiles_from(0)
+
+    def tiles_from(self, start_row: int) -> Iterator:
+        start = self._check_start(start_row)
+
+        def gen():
+            pos = 0
+            for f, rows in zip(self.files, self.shard_rows):
+                if pos + rows <= start:
+                    pos += rows             # a shard before the cursor: no IO
+                    continue
+                local = max(start - pos, 0)
+                if local % self.tile_rows:
+                    raise ValueError(_not_a_boundary(
+                        start, pos + local - local % self.tile_rows,
+                        self.tile_rows))
+                mm = np.load(f, mmap_mode="r")
+                for t in _chunk(mm[local:], self.tile_rows):
+                    yield np.array(t)
+                pos += rows
+        return gen()
 
 
 class GeneratorSource(TileSource):
@@ -231,24 +306,25 @@ def as_tile_source(obj, *, tile_rows: int = DEFAULT_TILE_ROWS,
 
       TileSource            -> itself (tile_rows/shape ignored)
       array/tensor (ndim>=2)-> ArraySource
+      http(s) URL           -> ObjectStoreSource (ranged GETs; a prefix URL
+                               resolves <prefix>/manifest.json)
+      str/Path to a *.json  -> ObjectStoreSource (byte-range reads over the
+                               manifest's shards)
       str/Path to a file    -> MemmapSource (.npy)
       str/Path to a dir     -> DirectorySource
       callable              -> GeneratorSource (replayable; needs ``shape``)
       sequence of tiles     -> GeneratorSource (replayable; shape inferred)
       re-iterable container -> GeneratorSource (replayable; needs ``shape``)
       bare iterator         -> GeneratorSource (one-shot; needs ``shape``)
-
-    Object-store URLs and ``.json`` manifests raise: that source is ROADMAP
-    item 12b.
     """
     if isinstance(obj, TileSource):
         return obj
     if isinstance(obj, (str, Path)):
         s = str(obj)
         if s.startswith(("http://", "https://")) or s.endswith(".json"):
-            raise NotImplementedError(
-                "object-store tile sources (byte-range reads, manifests) "
-                "are not ported yet: ROADMAP Queue 1 item 12b")
+            # deferred: objectstore imports this module for TileSource
+            from repro_torch.stream.objectstore import ObjectStoreSource
+            return ObjectStoreSource(obj, tile_rows)
         p = Path(obj)
         return (DirectorySource(p, tile_rows) if p.is_dir()
                 else MemmapSource(p, tile_rows))
@@ -405,24 +481,28 @@ def _prefetch(tiles: Iterable, depth: int, dev: torch.device,
 
 
 def source_tiles(src: TileSource, *, prefetch_depth: Optional[int] = 1,
-                 device=None) -> Iterator:
+                 device=None, start_row: int = 0) -> Iterator:
     """One pass over ``src``'s tiles, prefetched to ``device`` unless
     ``prefetch_depth is None`` (then the tiles come as the source yields
-    them and the consumer moves each)."""
+    them and the consumer moves each).  ``start_row`` resumes at a tile
+    boundary (:meth:`TileSource.tiles_from`), through the same prefetch."""
+    it = src.tiles_from(start_row) if start_row else src.tiles()
     if prefetch_depth is None:
-        return iter(src.tiles())
-    return prefetch(src.tiles(), depth=prefetch_depth, device=device)
+        return iter(it)
+    return prefetch(it, depth=prefetch_depth, device=device)
 
 
 def offset_tiles(src: TileSource, *, prefetch_depth: Optional[int] = 1,
-                 device=None) -> Iterator[tuple[int, object]]:
-    """One pass over ``src`` as ``(row_offset, tile)`` pairs, the tiles as
-    :func:`source_tiles` gives them; raises ``ValueError`` after the last
-    tile if the tiles do not cover ``src.n_rows`` rows.  The tile loop of
-    every streamed driver (a port helper; the reference repeats the loop)."""
-    off = 0
+                 device=None, start_row: int = 0
+                 ) -> Iterator[tuple[int, object]]:
+    """One pass over ``src`` from row ``start_row`` as ``(row_offset,
+    tile)`` pairs, the tiles as :func:`source_tiles` gives them; raises
+    ``ValueError`` after the last tile if the tiles do not reach
+    ``src.n_rows``.  The tile loop of every streamed driver (a port helper;
+    the reference repeats the loop)."""
+    off = int(start_row)
     for tile in source_tiles(src, prefetch_depth=prefetch_depth,
-                             device=device):
+                             device=device, start_row=start_row):
         yield off, tile
         off += int(tile.shape[0])
     if off != src.n_rows:

@@ -177,19 +177,15 @@ def init(key, n_cols: int, p: int, *, max_rows: int, left: bool = False,
             "(n_cols, p) Omega for a matrix SketchState; use "
             "stream.tucker.tucker_init(dist='khatri_rao') or "
             "core.structured.KhatriRaoOmega directly")
-    key_based = method == "shgemm_fused" or dist == "srht"
-    if heads is not None and (key_based or left):
+    if heads is not None and (not carries_omega(method, dist) or left):
         raise ValueError("heads= batches Omega-carrying right sketches only "
                          "(a non-fused method, no left sketch)")
     dev = resolve_device(device)
     key_omega = _kf.key_pair(key)
     omega = None
-    if not key_based:
-        omega = proj.materialize_omega(key_omega, (n_cols * (heads or 1), p),
-                                       dist=dist, dtype=omega_dtype,
-                                       device=dev)
-        if heads is not None:
-            omega = omega.reshape(heads, n_cols, p)
+    if carries_omega(method, dist):
+        omega = draw_omega(key_omega, n_cols, p, heads=heads, dist=dist,
+                           omega_dtype=omega_dtype, device=dev)
     lead = () if heads is None else (heads,)
     l = int(l) if l is not None else 2 * p + 1
     return SketchState(
@@ -199,6 +195,23 @@ def init(key, n_cols: int, p: int, *, max_rows: int, left: bool = False,
            if left else None),
         key_psi=fold_in_words(key_omega, PSI_FOLD) if left else None,
         method=str(method), dist=str(dist), omega_dtype=omega_dtype, l=l)
+
+
+def carries_omega(method: str, dist: str) -> bool:
+    """Whether a state keeps its Omega (the non-fused methods) or only key
+    words (kernel 2 and SRHT, and the Khatri-Rao mode accumulators of
+    ``stream.tucker``)."""
+    return not (method == "shgemm_fused" or dist in ("srht", "khatri_rao"))
+
+
+def draw_omega(key_omega, n_cols: int, p: int, *, heads: int | None,
+               dist: str, omega_dtype, device) -> torch.Tensor:
+    """The Omega an Omega-carrying state keeps: drawn at ``init`` and drawn
+    again from the key words when a checkpointed state is restored
+    (``stream.resilience.state_from_payload``), bit for bit."""
+    omega = proj.materialize_omega(key_omega, (n_cols * (heads or 1), p),
+                                   dist=dist, dtype=omega_dtype, device=device)
+    return omega if heads is None else omega.reshape(heads, n_cols, p)
 
 
 def _psi_s(state: SketchState) -> float | None:

@@ -604,3 +604,50 @@ def test_streamed_rsvd_launches_kernels(gen):
         assert counter.launches - before == 4
         want = rsvd.rsvd(KEY, a, 16, method=method)
         torch.testing.assert_close(res.s, want.s, rtol=1e-4, atol=1e-6 * float(want.s[0]))
+
+
+# ---------------------------------------------------------------------------
+# Checkpointed, resumed streamed jobs on the card (stream.resilience)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fail_at", [3, 8 + 5], ids=["sketch", "B"])
+def test_checkpointed_kernel2_job_resumes_bitwise(gen, tmp_path, fail_at):
+    """A checkpointed kernel-2 rsvd_streamed (1024 x 512 in 8 tiles, rank
+    32) raises a fault in its sketch or B pass and resumes bit for bit
+    against the uninterrupted run, through kernel 2."""
+    from repro_torch import main_path, stream
+    from repro_torch.core import rsvd
+    a = _a(gen, 1024, 512)
+    src = stream.ArraySource(a, 128)
+
+    def job(s, **kw):
+        return rsvd.rsvd_streamed(KEY, s, 32, method="shgemm_fused", **kw)
+    want = job(src)
+    before = k2.launches
+    got, rep = main_path.resume_after_fault(job, src, fail_at_tile=fail_at,
+                                            checkpoint_dir=tmp_path,
+                                            checkpoint_every_tiles=2)
+    assert k2.launches > before
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert rep.attempts == 2 and rep.tiles_recomputed <= 2
+
+
+def test_checkpoint_of_card_state_is_not_torn(gen, tmp_path):
+    """commit copies a card state to the host before the writer thread runs:
+    updates after the commit leave the checkpoint on disk unchanged."""
+    import numpy as np
+    from repro_torch import stream
+    from repro_torch.stream import resilience as resil
+    st = stream.init(KEY, 512, 32, max_rows=256, left=True,
+                     method="shgemm_fused")
+    stream.update(st, _a(gen, 128, 512), 0)
+    before = (st.y.cpu().numpy().copy(), st.w.cpu().numpy().copy())
+    ck = resil.SketchJobCheckpointer(tmp_path, every_tiles=1)
+    ck.commit(phase="sketch", pass_idx=1, tiles_done=1, rows_done=128,
+              payload=lambda: resil.state_to_payload(st))
+    stream.update(st, _a(gen, 128, 512), 128)
+    st.y.fill_(7.0)
+    ck.wait()
+    saved = sorted(tmp_path.glob("ckpt_*"))[-1]
+    assert np.array_equal(np.load(saved / "state.y.npy"), before[0])
+    assert np.array_equal(np.load(saved / "state.w.npy"), before[1])

@@ -24,6 +24,7 @@ from repro_torch.models import cache as cache_mod, registry as R
 from repro_torch.serve import kv_compress
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.model_step import ModelStep
+from repro_torch.stream import resilience as resil
 
 torch.set_num_threads(1)  # small shapes: leave the cores to the other test workers
 
@@ -50,12 +51,13 @@ def test_import_pulls_in_no_jax_or_reference():
                          text=True, cwd=REPO, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 34  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 39  # every module was imported
 
 
-@pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch"])
+@pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data"])
 def test_serving_subpackages_import_without_jax(sub):
-    """Each subpackage of the serving slice, imported on its own in a fresh
+    """Each subpackage (the serving slice's; ``stream`` with its object-store
+    and resilience modules; ``data``), imported on its own in a fresh
     interpreter, leaves 'jax' out of sys.modules."""
     code = (f"import importlib, pkgutil, sys\n"
             f"import repro_torch.{sub} as p\n"
@@ -127,6 +129,15 @@ ENTRY_POINTS = {
         _KEY, torch.ones((4, 4, 4)), ranks=(2, 2, 2), **d),
     "srht_sketch": lambda **d: structured.srht_sketch(_KEY, _A, 2, **d),
     "prefetch": lambda **d: list(stream.prefetch(iter([_A]), **d)),
+    "elastic_distributed_rsvd_streamed": lambda **d: (
+        stream.elastic_distributed_rsvd_streamed(
+            _KEY, [torch.ones((4, 6)), torch.ones((4, 6))], 2, **d)),
+    "state_from_payload": lambda **d: resil.state_from_payload(
+        *resil.state_to_payload(stream.init(_KEY, 4, 2, max_rows=4,
+                                            device="cpu")), **d),
+    "tucker_from_payload": lambda **d: resil.tucker_from_payload(
+        *resil.tucker_to_payload(stream.tucker_init(
+            _KEY, (4, 4, 4), (2, 2, 2), device="cpu")), **d),
     "kv_sketch_init": lambda **d: kv_compress.kv_sketch_init(_KEY, 2, 16, 8, 4, **d),
     "ModelStep": lambda **d: ModelStep(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),

@@ -1,10 +1,13 @@
 """stream/source.py on the port alone: every source kind yields the same
 row tiles (and the same sketch), replayability and its errors, the shard
-order guard, ``as_tile_source``'s coercions, and ``prefetch`` (order and
+order guard, ``as_tile_source``'s coercions (manifests and http URLs to the
+object-store source, over a loopback server), and ``prefetch`` (order and
 values, reader exceptions, early close) on the CPU, where the copy to the
 card is skipped.  The pinned-buffer copy to the card is held in
 ``tests/test_torch_cuda.py``."""
 
+import functools
+import http.server
 import threading
 import time
 
@@ -71,6 +74,32 @@ def test_every_source_kind_gives_the_matrix_and_its_sketch(matrix, disk, kind):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["array", "tensor", "memmap", "directory", "factory",
+                                  "objectstore"])
+def test_tiles_from_yields_the_suffix(matrix, disk, kind):
+    """The resume cursor: from every tile boundary, exactly the suffix of
+    ``tiles()`` with its boundaries (the directory's stop at shard ends),
+    also through ``offset_tiles``; a cursor inside a tile or out of range
+    raises."""
+    srcs = _sources(matrix, disk)
+    srcs["objectstore"] = stream.ObjectStoreSource(disk[1], TILE)
+    src = srcs[kind]
+    full = [np.asarray(t) for t in src.tiles()]
+    starts = np.cumsum([0] + [t.shape[0] for t in full])
+    for k, start in enumerate(starts):
+        suffix = [np.asarray(t) for t in src.tiles_from(int(start))]
+        assert len(suffix) == len(full) - k, (kind, start)
+        assert all(np.array_equal(a, b) for a, b in zip(full[k:], suffix))
+    pairs = list(stream.offset_tiles(src, device="cpu", start_row=int(starts[2])))
+    assert [off for off, _ in pairs] == list(starts[2:-1])
+    inside = int(starts[1]) + 1
+    with pytest.raises(ValueError, match="not a tile boundary"):
+        list(src.tiles_from(inside))
+    for bad in (-1, M + 1):
+        with pytest.raises(ValueError, match="out of range"):
+            list(src.tiles_from(bad))
+
+
 def test_directory_tiles_stop_at_shard_boundaries(matrix, disk):
     heights = [t.shape[0] for t in stream.DirectorySource(disk[1], TILE).tiles()]
     assert heights == [30, 32, 2, 32, 4] and sum(heights) == M
@@ -120,9 +149,23 @@ def test_as_tile_source_coercions(matrix, disk):
         stream.as_tile_source([])
     with pytest.raises(TypeError, match="cannot build"):
         stream.as_tile_source(3.0)
-    for url in ("http://localhost/a", "https://h/x", str(npy) + ".json"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            stream.as_tile_source(url)
+    # a *.json path is an object-store manifest, an http URL an object store
+    from repro_torch.data import pipeline
+    layout = shards.parent / "layout"
+    pipeline.write_matrix_shards(layout, matrix, 64)
+    obj = stream.as_tile_source(layout / "manifest.json", tile_rows=TILE)
+    assert isinstance(obj, stream.ObjectStoreSource) and obj.shape == (M, N)
+    np.testing.assert_array_equal(np.concatenate(list(obj.tiles())), matrix)
+    srv = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(
+            http.server.SimpleHTTPRequestHandler, directory=str(layout)))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:   # a plain file server answers ranged GETs with 200: refused
+        with pytest.raises(ValueError, match="ignored the Range header"):
+            stream.as_tile_source(f"http://127.0.0.1:{srv.server_address[1]}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_reiterable_container_stays_replayable(matrix):

@@ -147,7 +147,7 @@ def test_adaptive_widens_until_converged():
     assert einfo.widen_passes == 0 and einfo.converged and einfo.grown_sketch_bytes == 0
 
 
-def test_rsvd_streamed_argument_checks(a_exp):
+def test_rsvd_streamed_argument_checks(a_exp, tmp_path):
     src = stream.ArraySource(a_exp, TILE)
     jsrc = rstream.ArraySource(a_exp, TILE)
     for kw, match in (
@@ -167,10 +167,17 @@ def test_rsvd_streamed_argument_checks(a_exp):
             ref_rsvd.rsvd_streamed(JKEY, jsrc, RANK, **kw)
         with pytest.raises(ValueError, match=match):
             rsvd.rsvd_streamed(KEY, src, RANK, device="cpu", **kw)
-    for kw in (dict(checkpoint_dir="ck"), dict(checkpoint_dir="ck", resume=True),
-               dict(checkpoint_dir="ck", return_report=True)):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            rsvd.rsvd_streamed(KEY, src, RANK, device="cpu", **kw)
+    # the checkpoint arguments run (stream.resilience): the result is the
+    # plain run's bit for bit, and return_report adds the report
+    plain = rsvd.rsvd_streamed(KEY, src, RANK, device="cpu")
+    for i, kw in enumerate((dict(), dict(resume=True),
+                            dict(return_report=True))):
+        out = rsvd.rsvd_streamed(KEY, src, RANK, device="cpu",
+                                 checkpoint_dir=tmp_path / str(i), **kw)
+        res = out[0] if kw.get("return_report") else out
+        assert all(torch.equal(x, y) for x, y in zip(res, plain)), kw
+        assert list((tmp_path / str(i)).glob("ckpt_*"))
+    assert out[1].attempts == 1 and out[1].goodput == 1.0
     with pytest.raises(ValueError, match="1 <= rank <= min"):
         rsvd.rsvd_streamed(KEY, src, N + 1, device="cpu")
 
@@ -235,7 +242,7 @@ def test_rp_sthosvd_streamed_adaptive_ranks_match_reference(reference_draws,
         float(ref_hosvd.reconstruction_error(jnp.asarray(t), want)), rtol=1e-3)
 
 
-def test_rp_sthosvd_streamed_argument_checks(noisy_tensor):
+def test_rp_sthosvd_streamed_argument_checks(noisy_tensor, tmp_path):
     t = noisy_tensor
     for kw, match, exc in (
             (dict(ranks=(2, 2, 2), tol=0.1), "not both", ValueError),
@@ -249,9 +256,13 @@ def test_rp_sthosvd_streamed_argument_checks(noisy_tensor):
             ref_hosvd.rp_sthosvd_streamed(JKEY, rstream.ArraySource(t, 8), **kw)
         with pytest.raises(exc, match=match):
             hosvd.rp_sthosvd_streamed(KEY, stream.ArraySource(t, 8), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        hosvd.rp_sthosvd_streamed(KEY, stream.ArraySource(t, 8), ranks=(2, 2, 2),
-                                  checkpoint_dir="ck", device="cpu")
+    plain = hosvd.rp_sthosvd_streamed(KEY, stream.ArraySource(t, 8), ranks=(2, 2, 2),
+                                      device="cpu")
+    ckpt = hosvd.rp_sthosvd_streamed(KEY, stream.ArraySource(t, 8), ranks=(2, 2, 2),
+                                     checkpoint_dir=tmp_path, device="cpu")
+    assert torch.equal(ckpt.core, plain.core)
+    assert all(torch.equal(x, y) for x, y in zip(ckpt.factors, plain.factors))
+    assert list(tmp_path.glob("ckpt_*"))
     with pytest.raises(ValueError, match="pass dims="):
         hosvd.rp_sthosvd_streamed(KEY, iter([t]), ranks=(2, 2, 2), device="cpu")
     with pytest.raises(ValueError, match="cover"):
