@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 290 s on an H100, the build included).
+(about 330 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -22,9 +22,11 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    every method, with the reference's error limits and the kernels' launch
    and split-K reduction counts;
 4. timings (median over CUDA events, and device time from torch.profiler):
-   kernels 1 and 2 under their planners (``ops.shgemm_plan``,
-   ``ops.fused_plan``) at rSVD's shape and the three RP-ST-HOSVD mode
-   shapes, each beside its plain version, the f32 ``torch.matmul`` of the
+   kernels 1 and 2 under the plans the main path launches
+   (``autotune.pick_blocks``: the shipped cache, else the planners
+   ``ops.shgemm_plan`` and ``ops.fused_plan``, which are timed too where
+   they differ) at rSVD's shape and the three RP-ST-HOSVD mode shapes, each
+   beside its plain version, the f32 ``torch.matmul`` of the
    same product (``library_ms``) and the least time the card could take
    (``bound_ms``); end-to-end rSVD
    and RP-HOSVD per method (methods in turns), and a torch.profiler
@@ -75,7 +77,25 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    as 4096-row shards behind ``ObjectStoreSource`` with 2 % of its range
    reads failing and retried, bit for bit (GB/s a pass); the elastic
    rSVD losing one of four hosts bit for bit against the full fleet; a
-   streamed Tucker resumed after a fault bit for bit; kernel 2's launches.
+   streamed Tucker resumed after a fault bit for bit; kernel 2's launches;
+11. the autotuner and distributed RandNLA: (11a) the shipped autotune entries
+   served on the card, ``autotune_blocks`` for kernels 1-2 at rSVD's and
+   RP-HOSVD's shapes and ``autotune_decode_block`` at the engine's state,
+   each tuned plan bit for bit against the planner's (kernel 4 against its
+   plain version), timed beside it, a second call a cache hit that times
+   nothing; (11b) a 2 x 2 (data, model) gloo world of four processes on the
+   one card (``launch.world.run_world``): ``distributed_rsvd`` through
+   kernels 1 and 2 on A_exp against phase 3's limit and the one-process
+   singular values, the range finder's Q^T Q, power iterations on A_linear
+   against the Eckart-Young floor, kernel 2 at each rank's Omega row offset
+   against its plain version, ``merge_across_hosts`` bit for bit against the
+   one-process sketch; then ``distributed_rsvd_streamed`` over four sources
+   of phase 9's matrix, its merged sketch bit for bit against
+   ``rsvd_streamed``'s and resumed after a fault bit for bit.
+
+Phases 1-10 run against an empty user autotune cache in a temporary file
+(``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
+cache's (``src/repro_torch/kernels/autotune_default.json``) or the planners'.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1422,6 +1442,407 @@ def phase10_resilience(torch, dev, card, ooc9: dict) -> dict:
     return out
 
 
+# Phase 11: the autotuner and distributed RandNLA.
+DIST_WORLD = (2, 2)        # 11b: data x model ranks, all on the one card (gloo)
+DIST_TIMEOUT = 180.0       # a deadlocked collective fails the phase, not the run
+DIST_HOSTS = 4             # 11b: streamed sources cut from phase 9's matrix
+DIST_FAULT = (2, 1)        # 11b: the raised fault: source 2's second tile
+
+
+TUNE_TIMES = ("CUDA-event ms around one call (host included) / ms a launch "
+              "replayed from a CUDA graph (device)")
+
+
+def tuned_vs_planned(torch, tuned, planned) -> dict:
+    """Both calls timed in turns: CUDA events around one call, then a
+    launch replayed from a CUDA graph (the profiler's device time is not
+    read here: late in the run its traces hold no kernel)."""
+    ms = {"tuned": [], "planned": []}
+    for _ in range(2):
+        for lbl, fn in (("tuned", tuned), ("planned", planned), ("planned", planned),
+                        ("tuned", tuned)):
+            ms[lbl].append((median_ms(torch, fn), graph_ms(torch, fn)))
+    best = {lbl: (min(t for t, _ in v), min(g for _, g in v)) for lbl, v in ms.items()}
+    return {"ms": best["tuned"][0], "graph_ms": best["tuned"][1],
+            "planned_ms": best["planned"][0], "planned_graph_ms": best["planned"][1]}
+
+
+def phase11_autotune(torch, dev, card, errs5: dict) -> dict:
+    """11a: the shipped entries served on the card; ``autotune_blocks`` for
+    kernels 1-2 at rSVD's and RP-HOSVD's shapes and ``autotune_decode_block``
+    at the engine's state, each tuned plan against the planner's (bit for
+    bit for kernels 1-2, kernel 4 against its plain version), a second call
+    a cache hit that times nothing."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import ops
+    from repro_torch.convert import key_from_seed
+
+    key = key_from_seed(7)
+    bf16 = torch.bfloat16
+    # the shipped entries, served to this card with the user cache empty
+    shipped = at._load_shipped()
+    for m, n, k in at.SHIPPED_GEMM_SHAPES:
+        for fused in (False, True):
+            entry = shipped.get(at.cache_key(m, n, k, bf16, 2, fused))
+            check(entry is not None and at.pick_blocks(m, n, k, fused=fused)
+                  == tuple(entry["plan"]) and entry["device"] == at.device_name(),
+                  f"shipped entry of {(m, n, k)} fused={fused} not served on "
+                  f"this card: {entry}")
+    for shape in at.SHIPPED_DECODE_SHAPES:
+        entry = shipped.get(at.decode_cache_key(shape[0] * shape[1], *shape[2:]))
+        check(entry is not None and at.pick_decode_block(*shape) == entry["splits"],
+              f"shipped kernel-4 entry of {shape} not served: {entry}")
+    print(f"[tune] the {len(shipped)} shipped entries "
+          f"(src/repro_torch/kernels/autotune_default.json, "
+          f"{sorted({e['device'] for e in shipped.values()})}) are served on "
+          f"this card with an empty user cache")
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for sname, (m, k, n) in (("rsvd", RSVD_SHAPE), ("hosvd", HOSVD_SHAPE)):
+        a = torch.randn((m, k), generator=gen, device=dev) / math.sqrt(k)
+        b = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        for name, fused in (("shgemm", False), ("shgemm_fused", True)):
+            timer = at.gemm_timer(m, n, k, bf16, 2, fused, dev)
+            calls = [0]
+
+            def counted(*args, timer=timer, calls=calls):
+                calls[0] += 1
+                return timer(*args)
+            plan, hit = at.autotune_blocks(m, n, k, fused=fused, time_fn=counted)
+            timed = calls[0]
+            again, hit2 = at.autotune_blocks(m, n, k, fused=fused, time_fn=counted)
+            check(not hit and timed > 0 and hit2 and again == plan
+                  and calls[0] == timed,
+                  f"autotune {name} {sname}: second call timed "
+                  f"{calls[0] - timed} plans (hit {hit2})")
+            check(at.pick_blocks(m, n, k, fused=fused) == plan,
+                  f"autotune {name} {sname}: the tuned plan is not served")
+            planned = at.planned_blocks(m, n, k, fused=fused)
+            if fused:
+                tuned_call = (lambda: ops.shgemm_fused(a, key, n))
+                plan_call = (lambda: ops.shgemm_fused(a, key, n, blocks=planned[:3],
+                                                      splits=planned[3]))
+            else:
+                tuned_call = (lambda: ops.shgemm(a, b))
+                plan_call = (lambda: ops.shgemm(a, b, blocks=planned[:3],
+                                                splits=planned[3]))
+            check(torch.equal(tuned_call(), plan_call()),
+                  f"autotune {name} {sname}: tuned plan {plan} not bit-identical "
+                  f"to the planner's {planned}")
+            t = tuned_vs_planned(torch, tuned_call, plan_call)
+            entry = at._load_cache(at.cache_path())[at.cache_key(m, n, k, bf16, 2,
+                                                                 fused)]
+            out[(name, sname)] = {"plan": list(plan), "planned": list(planned),
+                                  "sweep_ms": entry["ms"], "swept": timed, **t}
+            print(f"[tune] {name} {sname} ({m}x{k} @ {k}x{n}): {timed} plans "
+                  f"(bm, bn, bk, splits) timed by CUDA-graph replay, tuned {plan} "
+                  f"(sweep "
+                  f"{entry['ms']:.4f} ms a call), planner's {planned}; bit for "
+                  f"bit; through ops, {TUNE_TIMES}: tuned {t['ms']:.4f} / "
+                  f"{t['graph_ms']:.4f}, planned {t['planned_ms']:.4f} / "
+                  f"{t['planned_graph_ms']:.4f}; second call a cache hit, 0 "
+                  f"timed [{card}]")
+        del a, b
+
+    # kernel 4's P at the engine's state
+    b_, kvh, s, g, hd, r = at.SHIPPED_DECODE_SHAPES[0]
+    timer = at.decode_timer(b_, kvh, s, g, hd, r, 2, dev)
+    calls = [0]
+
+    def counted4(*args):
+        calls[0] += 1
+        return timer(*args)
+    p, hit = at.autotune_decode_block(b_, kvh, s, g, hd, r, time_fn=counted4)
+    timed = calls[0]
+    p2, hit2 = at.autotune_decode_block(b_, kvh, s, g, hd, r, time_fn=counted4)
+    check(not hit and timed > 0 and hit2 and p2 == p and calls[0] == timed,
+          f"autotune kernel 4: second call timed {calls[0] - timed} P")
+    planned = at.planned_decode_block(b_, kvh, s, g, hd, r)
+    comp = tuple(min(c, s - 1) for c in (1984, 0, 1024, 1984, 64, 1920, 1984, 1))
+    comp = (comp * b_)[:b_]                    # phase 5's full slot
+    args = fdec_inputs(torch, gen, b=b_, s=s, h=g * kvh, kvh=kvh, hd=hd, r=r,
+                       comp=comp, wp=s - 1, dtype=torch.bfloat16)
+    got = ops.factored_decode_attention(*args, s - 1, scale=hd ** -0.5, splits=p)
+    want = k4.factored_decode_plain(*args, s - 1, scale=hd ** -0.5)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+          f"kernel 4 at the tuned P={p} disagrees with plain: {err}")
+    t = tuned_vs_planned(
+        torch, lambda: ops.factored_decode_attention(
+            *args, s - 1, scale=hd ** -0.5, splits=p),
+        lambda: ops.factored_decode_attention(
+            *args, s - 1, scale=hd ** -0.5, splits=planned))
+    entry = at._load_cache(at.cache_path())[at.decode_cache_key(b_ * kvh, s, g, hd, r)]
+    out["factored_decode"] = {"splits": p, "planned": planned,
+                              "sweep_ms": entry["ms"], "swept": timed,
+                              "max_abs_err": err, **t}
+    print(f"[tune] factored_decode ({b_}, {s}, {kvh}, {hd}) r={r} g={g}: {timed} "
+          f"split counts timed by CUDA-graph replay, tuned P={p} (sweep "
+          f"{entry['ms']:.4f} ms a call), "
+          f"the planner's P={planned}; tuned vs plain at the full slot "
+          f"max|kernel-plain| {err:.3e} (phase 5's tol 1e-2; phase 5 bf16 "
+          f"{errs5[('fdec', 'bf16')]:.3e}); {TUNE_TIMES}: tuned "
+          f"{t['ms']:.4f} / {t['graph_ms']:.4f}, planned {t['planned_ms']:.4f} "
+          f"/ {t['planned_graph_ms']:.4f}; second call a cache hit, 0 timed "
+          f"[{card}]")
+    return out
+
+
+def phase11_rank(rank, world, dev, *, sizes, key):
+    """One rank of 11b's world: distributed_rsvd through kernels 1 and 2 on
+    its block of A_exp and A_linear, the range finder, kernel 2 at its Omega
+    row offset against its plain version, and a merge across the data axis;
+    what it measured, for the parent to check."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import main_path, stream
+    from repro_torch.configs.paper_randnla import PAPER_RSVD
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.kernels.ref import dot_f32
+    from repro_torch.launch.mesh import HostMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PAPER_RSVD
+    p_hat = cfg.rank + cfg.oversample
+    mesh = HostMesh(sizes).bind()
+    out = {"coords": mesh.coords(rank), "device": str(dev)}
+    # gloo on CUDA tensors: MAX and MIN of int64
+    x = torch.tensor([rank, -rank], dtype=torch.int64, device=dev)
+    hi, lo = x.clone(), x.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    out["int64_max_min"] = (hi.tolist(), lo.tolist())
+    full = main_path.rsvd_inputs(cfg, device=dev)
+    blocks = {name: D.shard_matrix(a, mesh) for name, a in full.items()}
+
+    def rel_err(a_blk, res):
+        sq = torch.stack([(a_blk - dot_f32(res.u * res.s, res.vt)).square().sum(),
+                          a_blk.square().sum()])
+        dist.all_reduce(sq)
+        return float(torch.sqrt(sq[0] / sq[1]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    k1.launches = k2.launches = 0
+    for method in ("shgemm_pallas", "shgemm_fused"):
+        for rep in range(2):           # the second call is the one timed
+            res, ms = timed(lambda: D.distributed_rsvd(
+                key, blocks["exp"], cfg.rank, mesh, oversample=cfg.oversample,
+                method=method))
+        out[("rsvd", method)] = {"err": rel_err(blocks["exp"], res),
+                                 "s": res.s.cpu(), "ms": ms}
+    q = D.distributed_range_finder(key, blocks["exp"], p_hat, mesh,
+                                   method="shgemm_fused")
+    qtq = dot_f32(q.T, q)
+    dist.all_reduce(qtq, group=mesh.group("data"))
+    out["qtq_err"] = float((qtq - torch.eye(p_hat, device=dev)).abs().max())
+    for it in (0, 2):
+        res, ms = timed(lambda: D.distributed_rsvd(
+            key, blocks["linear"], cfg.rank, mesh, oversample=cfg.oversample,
+            power_iters=it, method="shgemm_fused"))
+        out[("power", it)] = {"err": rel_err(blocks["linear"], res), "ms": ms}
+    out["launches"] = {"shgemm": k1.launches, "shgemm_fused": k2.launches}
+
+    # kernel 2 at this rank's Omega row offset against its plain version on
+    # the materialized Omega slice (phase 2's tolerance)
+    a_blk = blocks["exp"]
+    off = mesh.index("model") * a_blk.shape[1]
+    y = ops.shgemm_fused(a_blk, key, p_hat, row_offset=off)
+    plain = k2.shgemm_fused_plain(a_blk, key, p_hat, row_offset=off)
+    out["k2"] = {"row_offset": off, "err": (y - plain).abs().max().item(),
+                 "ok": bool(torch.allclose(y, plain, rtol=1e-5, atol=1e-4))}
+
+    # merge_across_hosts over the data axis: the data index's row half of
+    # A_exp, in 256-row tiles, against the one-process sketch of all of it
+    a = full["exp"]
+    rows = a.shape[0] // mesh.size("data")
+    r0 = mesh.index("data") * rows
+    st = stream.init(key, a.shape[1], p_hat, max_rows=a.shape[0],
+                     method="shgemm_fused", device=dev)
+    for off in range(r0, r0 + rows, STREAM_TILE):
+        stream.update(st, a[off:min(off + STREAM_TILE, r0 + rows)], off)
+    merged = stream.merge_across_hosts(st, mesh.group("data"))
+    one = ops.shgemm_fused(a, key, p_hat)
+    out["merge"] = {"bitwise": bool(torch.equal(merged.y, one)),
+                    "rows_seen": merged.rows_seen}
+    return out
+
+
+def phase11_distributed(torch, dev, card) -> dict:
+    """11b: a 2 x 2 gloo world on the one card (``phase11_rank``), checked
+    here against the single-process rSVD; then the single-controller
+    streamed driver over four sources cut from phase 9's matrix, bit for bit
+    against ``rsvd_streamed`` and resumed after a fault bit for bit."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch import main_path, stream
+    from repro_torch.configs.paper_randnla import PAPER_RSVD
+    from repro_torch.convert import key_from_seed
+    from repro_torch.core import distributed as D
+    from repro_torch.core import rsvd
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.launch import world
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.stream import resilience as resil
+
+    key = key_from_seed(7)
+    cfg = PAPER_RSVD
+    out = {}
+    t0 = time.perf_counter()
+    ranks = world.run_world("chip_smoke:phase11_rank", math.prod(DIST_WORLD),
+                            kwargs={"sizes": DIST_WORLD, "key": key},
+                            backend="gloo", device="cuda", timeout=DIST_TIMEOUT)
+    t_world = time.perf_counter() - t0
+    n_ranks = len(ranks)
+    for r in ranks:
+        check(r["int64_max_min"] == ([n_ranks - 1, 0], [0, -(n_ranks - 1)]),
+              f"gloo int64 MAX/MIN on the card: {r['int64_max_min']}")
+    inputs = main_path.rsvd_inputs(cfg, device=dev)
+    for method in ("shgemm_pallas", "shgemm_fused"):
+        one = rsvd.rsvd(key, inputs["exp"], cfg.rank, oversample=cfg.oversample,
+                        method=method)
+        e_f32 = float(rsvd.reconstruction_error(inputs["exp"], rsvd.rsvd(
+            key, inputs["exp"], cfg.rank, oversample=cfg.oversample, method="f32")))
+        limit = main_path.error_limit("rsvd", e_f32)
+        errs = [r[("rsvd", method)]["err"] for r in ranks]
+        s_rank = ranks[0][("rsvd", method)]["s"].to(dev)
+        check(all(e <= limit for e in errs), f"distributed_rsvd {method}: "
+              f"errors {errs} over phase 3's limit {limit:.3e}")
+        check(torch.allclose(s_rank[:16], one.s[:16], rtol=1e-2),
+              f"distributed_rsvd {method}: singular values off the one-process rSVD")
+        check(all(torch.equal(r[("rsvd", method)]["s"], ranks[0][("rsvd", method)]["s"])
+                  for r in ranks), f"distributed_rsvd {method}: ranks' s differ")
+        out[("rsvd", method)] = {"err": errs[0], "limit": limit,
+                                 "ms": [r[("rsvd", method)]["ms"] for r in ranks]}
+        print(f"[dist] distributed_rsvd {method} A_exp {cfg.n}^2 rank {cfg.rank}+"
+              f"{cfg.oversample} on a {DIST_WORLD} (data, model) gloo world of "
+              f"{n_ranks} processes on one card, blocks "
+              f"{cfg.n // DIST_WORLD[0]}x{cfg.n // DIST_WORLD[1]}: rel. error "
+              f"{errs[0]:.4e} (phase 3's limit {limit:.4e} = 1.5x f32 + 1e-7); "
+              f"s[:16] within rtol 1e-2 of the one-process rSVD (max rel "
+              f"{((s_rank[:16] - one.s[:16]).abs() / one.s[:16]).max().item():.2e}); "
+              f"wall ms a call by rank "
+              f"{[round(r[('rsvd', method)]['ms'], 3) for r in ranks]} "
+              f"(four ranks share one card: these times say nothing of scaling) [{card}]")
+    qtq = max(r["qtq_err"] for r in ranks)
+    check(qtq <= 1e-4, f"distributed range finder: max|Q^T Q - I| {qtq:.3e}")
+    s_lin = rsvd.singular_values_linear(cfg.n, cfg.rank, cfg.s_p, device=dev)
+    floor = float(s_lin[cfg.rank:].norm() / s_lin.norm())
+    e0, e2 = ranks[0][("power", 0)]["err"], ranks[0][("power", 2)]["err"]
+    check(e2 < e0 and e2 < 1.02 * floor, f"distributed power iterations on "
+          f"A_linear: {e2:.4e} (q=0 {e0:.4e}), floor {floor:.4e}")
+    k2s = [r["k2"] for r in ranks]
+    check(all(k["ok"] for k in k2s), f"kernel 2 at a rank's row offset != plain: {k2s}")
+    check(all(r["merge"]["bitwise"] and r["merge"]["rows_seen"] == cfg.n
+              for r in ranks), "merge_across_hosts != the one-process sketch")
+    launches = [r["launches"] for r in ranks]
+    check(all(lc["shgemm"] > 0 and lc["shgemm_fused"] > 0 for lc in launches),
+          f"a kernel of the distributed path was never launched: {launches}")
+    out.update(qtq_err=qtq, power={"q0": e0, "q2": e2, "floor": floor},
+               k2_err=max(k["err"] for k in k2s), rank_launches=launches,
+               world_s=t_world)
+    print(f"[dist] range finder max|Q^T Q - I| {qtq:.2e} (<= 1e-4); A_linear "
+          f"power_iters=2 rel. error {e2:.4e} (q=0 {e0:.4e}), Eckart-Young "
+          f"floor {floor:.4e} (ratio {e2 / floor:.5f} <= 1.02); kernel 2 at each "
+          f"rank's row offset {[k['row_offset'] for k in k2s]} vs plain on the "
+          f"Omega slice: max|kernel-plain| {out['k2_err']:.3e} (rtol 1e-5, atol "
+          f"1e-4); merge_across_hosts of the two data halves ({STREAM_TILE}-row tiles) "
+          f"== the one-process kernel-2 sketch, bit for bit; gloo int64 MAX/MIN "
+          f"on CUDA tensors right; kernel launches by rank (counts set to 0 "
+          f"in each rank before its runs) {launches}; the world took "
+          f"{t_world:.1f} s (spawn and CUDA start-up included)")
+
+    # the single-controller streamed driver over four sources
+    host = inputs["exp"].cpu()
+    rows = host.shape[0] // DIST_HOSTS
+    srcs = [stream.ArraySource(host[h * rows:(h + 1) * rows], STREAM_TILE)
+            for h in range(DIST_HOSTS)]
+    mesh = HostMesh((DIST_HOSTS,), ("data",))
+    k1.launches = k2.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        res_d = D.distributed_rsvd_streamed(
+            key, srcs, cfg.rank, mesh, oversample=cfg.oversample,
+            checkpoint_dir=tmp / "d", checkpoint_every_tiles=1000)
+        torch.cuda.synchronize()
+        ms_d = (time.perf_counter() - t0) * 1e3
+        res_s = rsvd.rsvd_streamed(key, stream.ArraySource(host, STREAM_TILE),
+                                   cfg.rank, oversample=cfg.oversample,
+                                   checkpoint_dir=tmp / "s",
+                                   checkpoint_every_tiles=1000)
+
+        def last(ck, name):
+            return np.load(sorted((tmp / ck).glob("ckpt_*"))[-1] / f"{name}.npy")
+        y_d, y_s = last("d", "done.y"), last("s", "state.y")
+        check(np.array_equal(y_d, y_s), "distributed_rsvd_streamed's merged "
+              "sketch != rsvd_streamed's, bit for bit")
+        # B is the per-host partials' sum here and one running sum there:
+        # f32 reassociation moves A_exp's tail (s down to 1e-4 s_0, gaps of
+        # 3.5 %) by more than 1e-4, so the factors are held as phase 9 holds
+        # singular values (svals_close) and as the reference test holds the
+        # reconstruction (within 1e-5); the factors' differences are printed
+        signs = torch.sign((res_d.u * res_s.u).sum(0))
+        du = ((res_d.u * signs - res_s.u).abs() > 1e-5 + 1e-4 * res_s.u.abs()).any(0)
+        dv = ((res_d.vt * signs[:, None] - res_s.vt).abs()
+              > 1e-5 + 1e-4 * res_s.vt.abs()).any(1)
+        first_off = int(torch.nonzero(du | dv)[0]) if bool((du | dv).any()) else None
+        e_d = float(rsvd.reconstruction_error(inputs["exp"], res_d))
+        e_s = float(rsvd.reconstruction_error(inputs["exp"], res_s))
+        check(svals_close(torch, res_d.s, res_s.s) and abs(e_d - e_s) <= 1e-5,
+              f"distributed_rsvd_streamed off rsvd_streamed: errors {e_d:.4e} vs "
+              f"{e_s:.4e}")
+        h, t = DIST_FAULT
+        faulty = list(srcs)
+        faulty[h] = resil.FaultySource(srcs[h], fail_at_tile=t)
+        try:
+            D.distributed_rsvd_streamed(key, faulty, cfg.rank, mesh,
+                                        oversample=cfg.oversample,
+                                        checkpoint_dir=tmp / "f",
+                                        checkpoint_every_tiles=2)
+            check(False, "the streamed driver's fault never fired")
+        except resil.FaultInjected:
+            pass
+        got, rep = D.distributed_rsvd_streamed(
+            key, srcs, cfg.rank, mesh, oversample=cfg.oversample,
+            checkpoint_dir=tmp / "f", checkpoint_every_tiles=2, resume=True,
+            return_report=True)
+        check(same_bits(torch, got, res_d) and rep.attempts == 2,
+              f"the resumed distributed_rsvd_streamed != the uninterrupted run ({rep})")
+    torch.cuda.synchronize()
+    out["streamed"] = {"launches": {"shgemm": k1.launches,
+                                    "shgemm_fused": k2.launches},
+                       "ms": ms_d, "tiles_recomputed": rep.tiles_recomputed,
+                       "err": e_d, "err_single_host": e_s,
+                       "factors_within_1e-4_to_pair": first_off}
+    check(k2.launches > 0, "kernel 2 never launched by the streamed driver")
+    print(f"[dist] distributed_rsvd_streamed over {DIST_HOSTS} sources of {rows} "
+          f"rows of A_exp ({STREAM_TILE}-row tiles from host memory), one "
+          f"controller: the merged sketch == rsvd_streamed's over the whole "
+          f"source bit for bit; singular values within svals_close, rel. "
+          f"errors {e_d:.6e} / {e_s:.6e} (within 1e-5); sign-aligned factors "
+          f"within rtol 1e-4 / atol 1e-5 up to singular pair {first_off} of "
+          f"{cfg.rank} (None: all); a raised "
+          f"fault at source {h}'s tile {t}, resumed: == the uninterrupted run bit "
+          f"for bit (tiles recomputed {rep.tiles_recomputed}); "
+          f"{ms_d:.1f} ms wall (checkpointed); kernel launches {out['streamed']['launches']} [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1430,6 +1851,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import os
+    import shutil
+    import tempfile
+    tune_dir = tempfile.mkdtemp(prefix="chip-smoke-autotune-")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tune_dir, "autotune.json")
+    try:
+        return run(torch)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run(torch) -> int:
     from repro_torch import main_path
     from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
     from repro_torch.convert import key_from_seed
@@ -1662,10 +2095,13 @@ def main() -> int:
           f"reductions {main_reductions}")
 
     # -- 4. timings --------------------------------------------------------
-    # Each kernel under its planner at rSVD's shape and RP-ST-HOSVD's three
-    # mode shapes (the first is RP-HOSVD's), beside its plain version, the
-    # f32 torch.matmul of the same product (library_ms, also by device
-    # time) and its bound.
+    # Each kernel at rSVD's shape and RP-ST-HOSVD's three mode shapes (the
+    # first is RP-HOSVD's) under the plan the main path launches there
+    # (autotune.pick_blocks: the shipped cache, else the planner; the user
+    # cache is empty), the planner's plan too where it differs, beside its
+    # plain version, the f32 torch.matmul of the same product (library_ms,
+    # also by device time) and its bound.
+    from repro_torch.kernels import autotune
     records = {}
     per_shape = {"shgemm": [], "shgemm_fused": []}
     timed_shapes = {"rsvd": RSVD_SHAPE, "hosvd": STHOSVD_SHAPES[0]}
@@ -1677,42 +2113,59 @@ def main() -> int:
         omega32 = proj.fused_omega(key, (k, n), device=dev).float()
         for name, planner, omega_bytes in (("shgemm", ops.shgemm_plan, k * n * 2),
                                            ("shgemm_fused", ops.fused_plan, 0)):
-            bm, bn, bk, splits = planner(m, n, k)
-            a_pad = ops._pad_to(a, bm, bk)
-            n_pad = n + (-n) % bn
-            wbytes = k1.workspace_bytes(a_pad.shape[0], n_pad, a_pad.shape[1], bk,
-                                        splits)
+
+            def kernel_at(plan, name=name, a=a, b=b):
+                """The kernel's launch at ``plan``, its grid and workspace."""
+                bm, bn, bk, splits = plan
+                a_pad = ops._pad_to(a, bm, bk)
+                n_pad = n + (-n) % bn
+                wbytes = k1.workspace_bytes(a_pad.shape[0], n_pad, a_pad.shape[1],
+                                            bk, splits)
+                if name == "shgemm":
+                    b_pad = ops._pad_to(b, bk, bn)
+                    run = (lambda: k1.shgemm_pallas(a_pad, b_pad, bm=bm, bn=bn,
+                                                    bk=bk, splits=splits))
+                else:
+                    run = (lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm,
+                                                          bn=bn, bk=bk,
+                                                          splits=splits))
+                return run, (n_pad // bn, a_pad.shape[0] // bm, splits), wbytes
+
+            plan = autotune.pick_blocks(m, n, k, fused=name == "shgemm_fused")
+            planned = planner(m, n, k)
+            kern, grid, wbytes = kernel_at(plan)
             if name == "shgemm":
-                b_pad = ops._pad_to(b, bk, bn)
                 b_f32 = b.float()
-                kern = (lambda: k1.shgemm_pallas(a_pad, b_pad, bm=bm, bn=bn, bk=bk,
-                                                 splits=splits))
                 plain = (lambda: k1.shgemm_plain(a, b, 2))
                 lib = (lambda: torch.matmul(a, b_f32))
                 what = "bf16 B"
             else:
-                kern = (lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm,
-                                                       bn=bn, bk=bk, splits=splits))
                 plain = (lambda: k2.shgemm_fused_plain(a, key, n))
                 lib = (lambda: torch.matmul(a, omega32))
                 what = "bf16 gaussian"
             t_k, t_d = median_ms(torch, kern), device_ms(torch, kern)
+            t_pk, t_pd = t_k, t_d
+            if plan != planned:
+                plan_kern = kernel_at(planned)[0]
+                t_pk, t_pd = median_ms(torch, plan_kern), device_ms(torch, plan_kern)
             t_p = median_ms(torch, plain)
             t_l, t_ld = median_ms(torch, lib), device_ms(torch, lib)
             t_b, by = bound_ms(m, k, n, 2, omega_bytes)
             print(f"[time] {name} {sname} ({m}x{k} @ {k}x{n}, {what}, 2 terms, "
-                  f"plan (bm, bn, bk, splits) {(bm, bn, bk, splits)}, grid "
-                  f"{(n_pad // bn, a_pad.shape[0] // bm, splits)}, workspace "
-                  f"{wbytes} B): kernel {t_k:.4f} ms (device {fmt_ms(t_d)} ms), "
-                  f"plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
-                  f"{fmt_ms(t_ld)} ms), bound {t_b:.4f} ms ({by}); kernel/bound "
-                  f"{t_k / t_b:.2f}x [{card}]")
+                  f"plan (bm, bn, bk, splits) {plan} as the path launches it "
+                  f"(autotune.pick_blocks; the planner's {planned}: "
+                  f"{'the same' if plan == planned else f'{t_pk:.4f} ms, device {fmt_ms(t_pd)} ms'}"
+                  f"), grid {grid}, workspace {wbytes} B): kernel {t_k:.4f} ms "
+                  f"(device {fmt_ms(t_d)} ms), plain {t_p:.4f} ms, f32 matmul "
+                  f"{t_l:.4f} ms (device {fmt_ms(t_ld)} ms), bound {t_b:.4f} ms "
+                  f"({by}); kernel/bound {t_k / t_b:.2f}x [{card}]")
             records[(name, sname)] = (t_k, t_p, t_l, t_b, by)
             err = (results.get(("shgemm", sname, bf16, 2)) if name == "shgemm"
                    else results.get(("shgemm_fused", sname, bf16, "gaussian")))
             per_shape[name].append({
-                "shape": [m, k, n], "plan": [bm, bn, bk, splits],
+                "shape": [m, k, n], "plan": list(plan), "planned": list(planned),
                 "workspace_bytes": wbytes, "ms": t_k, "device_ms": t_d,
+                "planned_ms": t_pk, "planned_device_ms": t_pd,
                 "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                 "library_ms": t_l, "library_device_ms": t_ld, "max_abs_err": err})
         del omega32
@@ -1785,6 +2238,12 @@ def main() -> int:
     # -- 10. checkpointed, resumed and elastic jobs ------------------------
     resil10 = phase10_resilience(torch, dev, card, stream9["ooc"])
 
+    # -- 11. the autotuner and distributed RandNLA ------------------------
+    t_phase = time.perf_counter()
+    tune11 = phase11_autotune(torch, dev, card, errs5)
+    dist11 = phase11_distributed(torch, dev, card)
+    print(f"[dist] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -1804,6 +2263,11 @@ def main() -> int:
         rec["streamed_launches"] = stream9["launches"][rec["name"]]
         rec["streamed_max_abs_err"] = stream9["errs"][rec["name"]]
         rec["resilience_launches"] = resil10["launches"][rec["name"]]
+        rec["autotuned"] = {sname: tune11[(rec["name"], sname)]
+                            for sname in ("rsvd", "hosvd")}
+        rec["distributed_launches"] = {
+            "ranks": [lc[rec["name"]] for lc in dist11["rank_launches"]],
+            "streamed": dist11["streamed"]["launches"][rec["name"]]}
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1811,7 +2275,8 @@ def main() -> int:
                     "launches": prefill["launches"],
                     "max_abs_err": errs5[("flash", "prefill")], "ms": t_k,
                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-                    "library_ms": t_l})
+                    "library_ms": t_l, "autotuned": None,
+                    "distributed_launches": 0})
     fdec = times8["factored_decode"]["per_state"]
     kernels.append({"name": "factored_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/factored_decode.cu",
@@ -1822,7 +2287,8 @@ def main() -> int:
                     "plain_ms": fdec[0]["plain_ms"],
                     "bound_ms": fdec[0]["bound_ms"],
                     "bound_by": fdec[0]["bound_by"], "library_ms": None,
-                    "per_state": fdec})
+                    "per_state": fdec, "autotuned": tune11["factored_decode"],
+                    "distributed_launches": 0})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

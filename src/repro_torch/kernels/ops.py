@@ -13,7 +13,12 @@ passes ``device="cpu"``, where the kernels' plain versions run.
 Kernel 1's blocks and split-K count come from ``shgemm_plan`` and kernel
 2's from ``fused_plan``, unless ``blocks=`` / ``splits=`` are given; both
 kernels run one main loop, so both planners share the tiles, ``bk`` and
-the split count's rule (``plan_splits``).  The autotuner is not ported yet.
+the split count's rule (``plan_splits``).  Without ``blocks=`` and
+``splits=``, ``shgemm`` and ``shgemm_fused`` first consult the autotuner
+(``kernels/autotune.py``: a plan tuned for this shape on this card, at the
+planner's ``bk``, so the same bits); without ``block_kv=`` and ``splits=``,
+``factored_decode_attention`` takes kernel 4's P from it.  A miss serves the
+planner's plan.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import on_device, resolve_device
+from repro_torch.kernels import autotune
 from repro_torch.kernels import factored_decode as _fd
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import shgemm as _k
@@ -130,8 +136,9 @@ def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
     ``blocks`` is the reference's ``(bm, bn, bk)``; without it the blocks
     come from ``shgemm_plan``.  ``splits`` (port only) pins the split-K
     count, which must divide the padded k's ``bk`` tiles; without it
-    ``plan_splits`` picks it for the blocks.  The result's bits depend on
-    ``bk`` alone.
+    ``plan_splits`` picks it for the blocks.  Without both, the plan is the
+    autotuner's (``autotune.pick_blocks``: tuned, else ``shgemm_plan``).
+    The result's bits depend on ``bk`` alone.
     """
     dev = resolve_device(device)
     a = on_device(a, dev).to(torch.float32)
@@ -144,7 +151,10 @@ def shgemm(a, b, *, blocks: tuple[int, int, int] | None = None,
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     if terms not in SHGEMM_PER_SM:
         raise ValueError(f"terms={terms} unsupported")
-    if blocks is None:
+    if blocks is None and splits is None:
+        bm, bn, bk, planned = autotune.pick_blocks(
+            m, n, k, b_dtype=b.dtype, terms=terms, device=dev)
+    elif blocks is None:
         bm, bn, bk, planned = shgemm_plan(m, n, k, terms)
     else:
         bm, bn, bk = blocks
@@ -187,8 +197,9 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
     ``blocks`` is the reference's ``(bm, bn, bk)``; without it the blocks
     come from ``fused_plan``.  ``splits`` (port only) pins the split-K count,
     which must divide the padded k's ``bk`` tiles; without it
-    ``plan_splits`` picks it for the blocks.  The result's bits depend on
-    ``bk`` alone.
+    ``plan_splits`` picks it for the blocks.  Without both, the plan is the
+    autotuner's (``autotune.pick_blocks(fused=True)``: tuned, else
+    ``fused_plan``).  The result's bits depend on ``bk`` alone.
 
     A is zero-padded to block multiples: pad rows of A null the extra
     generated Omega rows and pad columns are sliced off, so the result does
@@ -212,7 +223,10 @@ def shgemm_fused(a, key, n: int, *, dist: str = "gaussian",
         compute_dtype = omega_dtype
     else:
         raise TypeError(f"omega_dtype must be bf16/fp16/fp8, got {omega_dtype}")
-    if blocks is None:
+    if blocks is None and splits is None:
+        bm, bn, bk, planned = autotune.pick_blocks(
+            m, n, k, b_dtype=omega_dtype, terms=terms, fused=True, device=dev)
+    elif blocks is None:
         bm, bn, bk, planned = fused_plan(m, n, k)
     else:
         bm, bn, bk = blocks
@@ -263,12 +277,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
 def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
                               write_pos: int, *, scale: float,
                               cap: float = 0.0,
-                              block_kv: int | None = None) -> torch.Tensor:
+                              block_kv: int | None = None,
+                              splits: int | None = None) -> torch.Tensor:
     """Factored-prefix decode attention through kernel 4, same signature and
     semantics as the oracle ``models.layers.factored_decode_attention``;
     ``write_pos`` may be an int32 tensor on the card.  ``block_kv`` is the
     grain of the kernel's split boundaries (``factored_decode.GRAIN`` unless
-    given); the split count comes from ``factored_decode.decode_plan``."""
+    given); the split count P is ``splits``, else ``decode_plan``'s for that
+    grain.  Without both, P is the autotuner's
+    (``autotune.pick_decode_block``: tuned for these shapes on this card,
+    else ``decode_plan``'s), resolved once per shape."""
+    if splits is None and block_kv is None:
+        b, _, h, hd = q.shape
+        kvh = k.shape[2]
+        splits = autotune.pick_decode_block(
+            b, kvh, k.shape[1], h // kvh, hd, k_us.shape[-1],
+            kv_bytes=k.element_size(), device=q.device)
     return _fd.factored_decode_attention(
         q, k, v, k_us, k_vt, v_us, v_vt, comp_len, write_pos, scale=scale,
-        cap=cap, block_kv=block_kv)
+        cap=cap, block_kv=block_kv, splits=splits)

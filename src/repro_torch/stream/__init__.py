@@ -14,10 +14,12 @@ HTTP ``Range:``, ``manifest.json``).  Fault tolerance: ``resilience.py``
 drivers; ``FaultySource`` / ``FlakyRangeFetcher`` fault injection;
 ``elastic_distributed_rsvd_streamed``; ``ResilienceReport``).
 
-Consumers: ``core.rsvd.rsvd_streamed``, ``core.hosvd.rp_sthosvd_streamed``
-and ``serve.kv_compress``.  Not ported yet: ``merge_across_hosts`` with the
-distributed drivers (ROADMAP Queue 1 item 13) and ``rolling.py``
-(sliding-window sketches; item 16b).
+Multi-host: ``merge_across_hosts`` (the collective merge over a
+``torch.distributed`` group, ``state.py``).
+
+Consumers: ``core.rsvd.rsvd_streamed``, ``core.hosvd.rp_sthosvd_streamed``,
+``core.distributed.distributed_rsvd_streamed`` and ``serve.kv_compress``.
+Not ported yet: ``rolling.py`` (sliding-window sketches; item 16b).
 """
 
 from repro_torch.stream.state import (SketchState, hstack, init, merge,

@@ -35,11 +35,14 @@ Departures from the reference, documented: the reference redraws a legacy
 Omega with ``jax.random`` at every update, the port keeps it in the state;
 Psi's key and Tucker's per-mode keys come from ``fold_in_words`` (counter
 lattice stream 8), not ``jax.random.fold_in``; updates change the state in
-place and return it; the kernel-2 blocks come from ``ops.fused_plan``, whose
-``bk`` depends on k alone, where the reference pins ``heuristic_blocks``.
+place and return it; the kernel-2 plan is the autotuner's at
+``ops.fused_plan``'s ``bk``, which depends on k alone, where the reference
+pins ``heuristic_blocks``.
 ``init``'s default method is ``"shgemm"`` (the reference's is
 ``"shgemm_fused"``; the port's serving engine relies on the default).
-``merge_across_hosts`` waits for ROADMAP item 13.
+``merge_across_hosts`` runs over a ``torch.distributed`` process group (the
+reference's over a ``shard_map`` axis name) and adds nothing to an
+unpoisoned sketch (the reference adds a zero).
 """
 
 from __future__ import annotations
@@ -434,9 +437,45 @@ def hstack(base: SketchState, ext: SketchState) -> SketchState:
     return dataclasses.replace(base, y=torch.cat([base.y, ext.y], dim=1))
 
 
-def merge_across_hosts(state: SketchState, *args, **kwargs) -> SketchState:
-    """Collective ``merge`` over a data-parallel group: the distributed
-    layer, ROADMAP Queue 1 item 13, is not ported yet."""
-    raise NotImplementedError(
-        "merge_across_hosts needs core/distributed.py on torch.distributed, "
-        "which is not ported yet (ROADMAP Queue 1 item 13)")
+def merge_across_hosts(state: SketchState, group=None, *,
+                       check_keys: bool = True) -> SketchState:
+    """Collective ``merge``: combine the per-host states of a data-parallel
+    group into the global sketch, called on every rank of ``group`` (a
+    ``torch.distributed`` process group, such as a bound
+    ``HostMesh.group("data")``; ``None`` is the whole world).
+
+    Linearity makes this an ``all_reduce`` SUM of Y (and W): for disjoint
+    row coverage it equals single-host accumulation bit for bit, because
+    every other host adds exact zeros to a row.  ``rows_seen`` is the MAX
+    over the group.  Static configuration (n_cols, p, l, method, ...) is
+    structural under SPMD: every rank runs the same program.  The keys are
+    data and can differ across hosts; with ``check_keys`` the result is
+    poisoned to NaN when any rank's key words differ (MAX against MIN of
+    ``key_omega`` / ``key_psi``): a loud failure instead of a sum of
+    sketches from different random subspaces.  Returns a new state."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("merge_across_hosts runs on every rank of a "
+                           "torch.distributed world: call "
+                           "init_process_group first (or stream.merge on "
+                           "one process)")
+    y = state.y.clone()
+    dist.all_reduce(y, group=group)
+    w = None
+    if state.w is not None:
+        w = state.w.clone()
+        dist.all_reduce(w, group=group)
+    rows = torch.tensor([state.rows_seen], dtype=torch.int64,
+                        device=state.device)
+    dist.all_reduce(rows, op=dist.ReduceOp.MAX, group=group)
+    if check_keys:
+        words = torch.tensor([*state.key_omega, *(state.key_psi or ())],
+                             dtype=torch.int64, device=state.device)
+        hi, lo = words.clone(), words.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        if not torch.equal(hi, lo):
+            y += float("nan")
+            if w is not None:
+                w += float("nan")
+    return dataclasses.replace(state, y=y, w=w, rows_seen=int(rows.item()))

@@ -651,3 +651,122 @@ def test_checkpoint_of_card_state_is_not_torn(gen, tmp_path):
     saved = sorted(tmp_path.glob("ckpt_*"))[-1]
     assert np.array_equal(np.load(saved / "state.y.npy"), before[0])
     assert np.array_equal(np.load(saved / "state.w.npy"), before[1])
+
+
+# -- the autotuner and the distributed path --------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune as at
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
+    at.forget_picks()
+    yield str(path)
+    at.forget_picks()
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["kernel1", "kernel2"])
+@pytest.mark.parametrize("shape", [(300, 130, 700), (64, 32, 8192)], ids=str)
+def test_autotuned_plan_is_bit_identical_to_the_planners(gen, tune_cache, fused,
+                                                         shape):
+    """Every candidate plan (bm, bn, splits) at the planner's bk gives the
+    planner's bits, so the tuned one the ops entry serves does too."""
+    from repro_torch.kernels import autotune as at
+    m, n, k = shape
+    a = _a(gen, m, k)
+    b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    plan, hit = at.autotune_blocks(m, n, k, fused=fused)
+    assert not hit and at.pick_blocks(m, n, k, fused=fused) == plan
+    assert at.autotune_blocks(m, n, k, fused=fused) == (plan, True)
+    planned = at.planned_blocks(m, n, k, fused=fused)
+
+    def run(p=None):
+        kw = {} if p is None else dict(blocks=p[:3], splits=p[3])
+        return (ops.shgemm_fused(a, KEY, n, **kw) if fused
+                else ops.shgemm(a, b, **kw))
+    want = run(planned)
+    assert torch.equal(run(), want)
+    for cand in at.candidate_blocks(m, n, k, fused=fused):
+        assert torch.equal(run(cand), want), cand
+
+
+def test_autotuned_decode_split_matches_plain(gen, tune_cache):
+    from repro_torch.kernels import autotune as at
+    b, kvh, s, g, hd, r = 2, 2, 512, 2, 64, 8
+    p, hit = at.autotune_decode_block(b, kvh, s, g, hd, r)
+    assert not hit and p in at.candidate_decode_blocks(b, kvh, s, g, hd, r)
+    assert at.pick_decode_block(b, kvh, s, g, hd, r) == p
+    comp = torch.tensor([100, 0], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, 1, g * kvh, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    us_k, us_v = (torch.randn((b, kvh, s, r), generator=gen, device="cuda")
+                  for _ in range(2))
+    vt_k, vt_v = (torch.randn((b, kvh, r, hd), generator=gen, device="cuda")
+                  for _ in range(2))
+    args = (q, k, v, us_k, vt_k, us_v, vt_v, comp, 300)
+    before = k4.launches
+    got = ops.factored_decode_attention(*args, scale=hd ** -0.5)
+    assert k4.launches == before + 1
+    want = k4.factored_decode_plain(*args, scale=hd ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_gloo_world_on_one_card_merges_bitwise(gen):
+    """Two gloo ranks on CUDA tensors: merge_across_hosts of disjoint rows
+    equals the one-process sketch bit for bit, and a key mismatch poisons."""
+    import numpy as np
+    from repro_torch import stream
+    from repro_torch.launch import world
+    a = np.random.default_rng(0).standard_normal((128, 96)).astype(np.float32)
+    outs = world.run_world("torch_dist_workers:merge_case", 2, device="cuda",
+                           kwargs=dict(a=a, split=[(0, 64, 24), (64, 128, 32)],
+                                       p_hat=22, psi_words=(5, 7), bad_key=(0, 9)),
+                           timeout=120)
+    one = ops.shgemm_fused(torch.from_numpy(a).cuda(), (0, 0), 22).cpu().numpy()
+    for out in outs:
+        assert np.array_equal(out["y"], one)
+        assert out["rows_seen"] == 128
+        assert np.isnan(out["poisoned_y"]).all()
+
+
+def test_nccl_world_merges_bitwise(gen):
+    """NCCL puts one rank on each card: needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards for two NCCL ranks")
+    import numpy as np
+    from repro_torch.launch import world
+    a = np.random.default_rng(0).standard_normal((128, 96)).astype(np.float32)
+    outs = world.run_world("torch_dist_workers:merge_case", 2, backend="nccl",
+                           device="cuda",
+                           kwargs=dict(a=a, split=[(0, 64, 24), (64, 128, 32)],
+                                       p_hat=22, psi_words=(5, 7), bad_key=(0, 9)),
+                           timeout=120)
+    one = ops.shgemm_fused(torch.from_numpy(a).cuda(), (0, 0), 22).cpu().numpy()
+    assert all(np.array_equal(out["y"], one) for out in outs)
+
+
+@pytest.mark.parametrize("method", ["shgemm_pallas", "shgemm_fused"])
+def test_nccl_world_distributed_rsvd(gen, method):
+    """A 2 x 2 NCCL world, a card a rank: distributed_rsvd through kernel 1
+    or 2 within the one-process rSVD's limit (1.5x f32 + 1e-7) and its
+    singular values (rtol 1e-2)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards for a 2 x 2 NCCL world")
+    from repro_torch.core import rsvd
+    from repro_torch.launch import world
+    n, rank_k = 1024, 64
+    a = rsvd.matrix_with_singular_values(
+        gen, n, rsvd.singular_values_exp(n, rank_k, 1e-4))
+    outs = world.run_world("torch_dist_workers:rsvd_case", 4, backend="nccl",
+                           device="cuda",
+                           kwargs=dict(sizes=(2, 2), a=a.cpu().numpy(),
+                                       rank_k=rank_k, method=method),
+                           timeout=180)
+    one = rsvd.rsvd((0, 1), a, rank_k, method=method)
+    f32 = rsvd.rsvd((0, 1), a, rank_k, method="f32")
+    limit = 1.5 * float(rsvd.reconstruction_error(a, f32)) + 1e-7
+    for out in outs:
+        assert out["err"] <= limit
+        torch.testing.assert_close(torch.from_numpy(out["s"])[:16],
+                                   one.s[:16].cpu(), rtol=1e-2, atol=0)

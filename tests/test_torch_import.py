@@ -8,6 +8,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -15,9 +16,12 @@ import torch
 
 from repro_torch import main_path, stream
 from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import hosvd, lstsq, projection as proj, rsvd, structured
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops, shgemm_fused as kf
+from repro_torch.kernels import autotune, ops, shgemm_fused as kf
+from repro_torch.launch import world
+from repro_torch.launch.mesh import HostMesh
 from repro_torch.configs.base import smoke_config
 from repro_torch.launch import serve as launch
 from repro_torch.models import cache as cache_mod, registry as R
@@ -54,11 +58,14 @@ def test_import_pulls_in_no_jax_or_reference():
     assert int(out.stdout.split()[-1]) >= 39  # every module was imported
 
 
-@pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data"])
+@pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data",
+                                 "core", "kernels"])
 def test_serving_subpackages_import_without_jax(sub):
     """Each subpackage (the serving slice's; ``stream`` with its object-store
-    and resilience modules; ``data``), imported on its own in a fresh
-    interpreter, leaves 'jax' out of sys.modules."""
+    and resilience modules; ``data``; ``launch`` with the mesh and the world
+    launcher; ``core`` with the distributed layer; ``kernels`` with the
+    autotuner), imported on its own in a fresh interpreter, leaves 'jax'
+    and 'repro' out of sys.modules."""
     code = (f"import importlib, pkgutil, sys\n"
             f"import repro_torch.{sub} as p\n"
             f"for m in pkgutil.walk_packages(p.__path__, 'repro_torch.{sub}.'):\n"
@@ -132,12 +139,23 @@ ENTRY_POINTS = {
     "elastic_distributed_rsvd_streamed": lambda **d: (
         stream.elastic_distributed_rsvd_streamed(
             _KEY, [torch.ones((4, 6)), torch.ones((4, 6))], 2, **d)),
+    "distributed_rsvd_streamed": lambda **d: dist_mod.distributed_rsvd_streamed(
+        _KEY, [torch.randn((4, 6)), torch.randn((4, 6))], 2,
+        HostMesh((2,), ("data",)), **d),
+    "autotune_blocks": lambda **d: autotune.autotune_blocks(
+        8, 8, 32, time_fn=lambda *a: 1.0,
+        cache_file=os.path.join(tempfile.mkdtemp(), "at.json"), **d),
+    "autotune_decode_block": lambda **d: autotune.autotune_decode_block(
+        1, 1, 16, 1, 8, 2, time_fn=lambda *a: 1.0,
+        cache_file=os.path.join(tempfile.mkdtemp(), "at.json"), **d),
     "state_from_payload": lambda **d: resil.state_from_payload(
         *resil.state_to_payload(stream.init(_KEY, 4, 2, max_rows=4,
                                             device="cpu")), **d),
     "tucker_from_payload": lambda **d: resil.tucker_from_payload(
         *resil.tucker_to_payload(stream.tucker_init(
             _KEY, (4, 4, 4), (2, 2, 2), device="cpu")), **d),
+    "run_world": lambda **d: world.run_world(
+        "torch_dist_workers:fail_case", 1, kwargs={"hang": False}, **d),
     "kv_sketch_init": lambda **d: kv_compress.kv_sketch_init(_KEY, 2, 16, 8, 4, **d),
     "ModelStep": lambda **d: ModelStep(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),

@@ -292,8 +292,10 @@ def test_init_and_update_errors():
         stream.update_cols(st, a[:16, :32], 0, 32)
     with pytest.raises(ValueError, match="row_offset.*overrun"):
         stream.update_cols(st, a[:16, :32], 88, 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        stream.merge_across_hosts(st, "hosts")
+    # the collective merge needs a torch.distributed world (its results:
+    # tests/test_torch_distributed.py)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        stream.merge_across_hosts(st)
 
 
 def test_fold_in_words():
