@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 330 s on an H100, the build included).
+(about 450 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -92,6 +92,24 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    one-process sketch; then ``distributed_rsvd_streamed`` over four sources
    of phase 9's matrix, its merged sketch bit for bit against
    ``rsvd_streamed``'s and resumed after a fault bit for bit.
+
+12. training with the paper's RandNLA optimizers at qwen3-0.6b's full width:
+   (12a) kernels 2 and 1 against their plain versions at GaLore's refresh
+   shape (151936x1024 @ .x72) and kernel 1 at compression's (1024x151936 @
+   .x32, A transposed), each timed beside its plain version, the f32
+   matmul and its bound, with the compression basis's draw and QR and the
+   transposed copy timed apart; (12b) six steps of the full 28-layer model
+   on SyntheticLM at seq 1024 x batch 8 (micro_batches=2) with AdamW, GaLore
+   through kernels 2 and 1 and in f32 (rank 64, refreshes at steps 1, 3,
+   5) and AdamW after compress_and_reduce (kernel 1 on Q): losses finite,
+   step, optimizer and refresh times, a traced step's kernel device time,
+   peak memory, state bytes; the projection-error, compression and
+   microbatch gates on the step-1 embedding gradient; (12c) ``train`` with
+   GaLore on 4 layers in a deterministic child: checkpoints every 2 steps,
+   a resume bit for bit against the uninterrupted run, a step raising once
+   retried bit for bit, no retry in the clean runs; (12d) compression over
+   a two-rank gloo group on the card against the mean of the ranks'
+   single-process results.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -1843,6 +1861,602 @@ def phase11_distributed(torch, dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. training with the paper's RandNLA optimizers
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 1024           # cut from train_4k's 4096 x 256 (PERF.md §4)
+TRAIN_BATCH = 8
+TRAIN_MICRO = 2
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-4
+TRAIN_TRACE_STEP = 4       # 0-based: the traced step, t = 5, a GaLore refresh
+GALORE_RANK, GALORE_REFRESH, GALORE_OVERSAMPLE = 64, 2, 8
+COMP_RANK = 32
+TRAIN_CONFIGS = ("adamw", "galore shgemm_fused", "galore shgemm_pallas",
+                 "galore f32", "compressed adamw")
+MICRO_SPLIT = 4            # 12b: microbatches of the accumulation gate
+LOOP_LAYERS, LOOP_EVERY, LOOP_RESUME_AT = 4, 2, 4
+LOOP_TIMEOUT = 600
+TRAIN_WORLD = 2            # 12d: gloo ranks on the one card
+SHGEMM_NAMES = ("shgemm_kernel", "shgemm_fused_kernel", "splitk_reduce")
+# The child of 12c: the loop, checkpoints, resume and retry under
+# deterministic algorithms (the embedding's backward adds with atomics).
+LOOP_CHILD = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "out = chip_smoke.phase12_loop(sys.argv[2])\n"
+    "print(json.dumps(out))\n")
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a nested dict / tuple / list (None skipped)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
+
+
+def traced_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: its result, the wall ms
+    (ending in a synchronize) and the device ms of each kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+    return out, wall, rows
+
+
+def training_optimizer(name: str):
+    """The optimizer of one 12b configuration."""
+    from repro_torch.optim import compression, galore
+    from repro_torch.optim import optimizers as opt
+    if name.startswith("galore"):
+        return galore.galore(TRAIN_LR, rank=GALORE_RANK, refresh_every=GALORE_REFRESH,
+                             method=name.split()[1], oversample=GALORE_OVERSAMPLE)
+    inner = opt.adamw(TRAIN_LR)
+    if name == "adamw":
+        return inner
+
+    # AdamW on the compressed gradients, as the reference's
+    # test_compression_training_converges drives it
+    def init(params):
+        return {"compression": compression.init_state(params),
+                "adamw": inner.init(params)}
+
+    def update(grads, state, params):
+        red, cst = compression.compress_and_reduce(
+            grads, state["compression"], rank=COMP_RANK, method="shgemm_fused")
+        upd, ast = inner.update(red, state["adamw"], params)
+        return upd, {"compression": cst, "adamw": ast}
+
+    return opt.Optimizer(init, update)
+
+
+def timed_optimizer(torch, tx, times: list, keep: dict | None = None):
+    """``tx`` with each update timed (synchronized, ms into ``times``);
+    ``keep``, if empty, receives a copy of the first call's gradients."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def update(grads, state, params):
+        if keep is not None and not keep:
+            keep.update({k: g.clone() for k, g in grads.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tx.update(grads, state, params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return Optimizer(tx.init, update)
+
+
+def phase12_kernels(torch, dev, card, key, cfg) -> dict:
+    """12a: kernels 1 and 2 at the training slice's shapes against their
+    plain versions (phase 2's tolerance), each timed through its ``ops``
+    entry (what the path calls: A padded or copied first where the blocks
+    need it) and alone on operands padded beforehand, beside its plain
+    version, the f32 torch.matmul of the same product and its bound; the
+    compression basis's draw and QR and the transposed-A copy timed
+    apart."""
+    from repro_torch.core import projection as proj
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.optim import compression
+
+    cfg_v, cfg_d = cfg.vocab, cfg.d_model   # the embedding's (151936, 1024)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randn((cfg_v, cfg_d), generator=gen, device=dev) / math.sqrt(cfg_d)
+    p_hat = GALORE_RANK + GALORE_OVERSAMPLE
+    omega = proj.materialize_omega(key, (cfg_d, p_hat), device=dev)
+    q = compression._draw_basis(key, 0, cfg_v, COMP_RANK, "shgemm_fused", dev)
+    q_low = q.to(torch.bfloat16)
+    a_t = a.T                               # what compress_and_reduce projects
+
+    def kernel_alone(name, a_, b_, n, plan):
+        """The kernel's own launch at ``plan`` on operands padded here."""
+        bm, bn, bk, splits = plan
+        a_pad = ops._pad_to(a_, bm, bk)
+        if name == "shgemm":
+            b_pad = ops._pad_to(b_, bk, bn)
+            return lambda: k1.shgemm_pallas(a_pad, b_pad, bm=bm, bn=bn, bk=bk,
+                                            splits=splits)
+        n_pad = n + (-n) % bn
+        return lambda: k2.shgemm_fused_pallas(a_pad, key, n_pad, bm=bm, bn=bn,
+                                              bk=bk, splits=splits)
+
+    out = {}
+    cases = (
+        ("shgemm_fused", "galore_refresh", (cfg_v, cfg_d, p_hat), a, None,
+         lambda: ops.shgemm_fused(a, key, p_hat),
+         lambda: k2.shgemm_fused_plain(a, key, p_hat),
+         lambda: torch.matmul(a, omega.float()), 0),
+        ("shgemm", "galore_refresh", (cfg_v, cfg_d, p_hat), a, omega,
+         lambda: ops.shgemm(a, omega), lambda: k1.shgemm_plain(a, omega, 2),
+         lambda: torch.matmul(a, omega.float()), cfg_d * p_hat * 2),
+        ("shgemm", "compression", (cfg_d, cfg_v, COMP_RANK), a_t, q_low,
+         lambda: ops.shgemm(a_t, q_low), lambda: k1.shgemm_plain(a_t, q_low, 2),
+         lambda: torch.matmul(a_t, q_low.float()), cfg_v * COMP_RANK * 2))
+    for name, what, (m, k, n), a_, b_, entry, plain, lib, omega_bytes in cases:
+        got, want = entry(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+              f"{name} at the training slice's {what} shape disagrees with plain")
+        del got, want
+        plan = autotune.pick_blocks(m, n, k, fused=name == "shgemm_fused",
+                                    device=dev)
+        alone = kernel_alone(name, a_, b_, n, plan)
+        t_e, t_eg = median_ms(torch, entry), graph_ms(torch, entry)
+        t_k = graph_ms(torch, alone)
+        del alone
+        t_p = median_ms(torch, plain)
+        t_l, t_lg = median_ms(torch, lib), graph_ms(torch, lib)
+        t_b, by = bound_ms(m, k, n, 2, omega_bytes)
+        n_pad = n + (-n) % plan[1]
+        pads = [(m, k), (m + (-m) % plan[0], k + (-k) % plan[2])]
+        rec = {"shape": [m, k, n], "plan": list(plan), "padded_n": n_pad,
+               "padded_a": pads[1], "ms": t_e, "entry_graph_ms": t_eg,
+               "kernel_graph_ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+               "library_graph_ms": t_lg, "bound_ms": t_b, "bound_by": by,
+               "max_abs_err": err}
+        out[(name, what)] = rec
+        copied = (what == "compression" or pads[0] != pads[1])
+        print(f"[train] 12a {name} {what} ({m}x{k} @ {k}x{n}"
+              f"{', A transposed' if what == 'compression' else ''}), plan "
+              f"(bm, bn, bk, splits) {plan}, n padded to {n_pad} ({n_pad - n} "
+              f"wasted columns), A {'copied to ' + str(tuple(pads[1])) if copied else 'as it is'}"
+              f" by ops._pad_to: max|kernel-plain| {err:.3e} (rtol 1e-5, atol "
+              f"1e-4); the ops entry {t_e:.4f} ms by events ({t_eg:.4f} replayed "
+              f"from a CUDA graph), the kernel alone {t_k:.4f} (graph), plain "
+              f"{t_p:.4f} ms, f32 matmul {t_l:.4f} ms (graph {t_lg:.4f}), bound "
+              f"{t_b:.4f} ms ({by}); kernel/bound {t_k / t_b:.2f}x [{card}]")
+    # what the compression path costs around kernel 1
+    t_copy = graph_ms(torch, lambda: a_t.contiguous())
+    draws = interleaved_host_ms(torch, {
+        m: (lambda m=m: compression._draw_basis(key, 0, cfg_v, COMP_RANK, m, dev))
+        for m in ("shgemm_fused", "f32")}, REPS)
+    om = proj.fused_omega(key, (cfg_v, COMP_RANK), dtype=torch.float32, device=dev)
+    t_qr = median_ms(torch, lambda: torch.linalg.qr(om))
+    out["compression_costs"] = {"transpose_copy_graph_ms": t_copy,
+                                "draw_basis_ms": draws, "qr_ms": t_qr,
+                                "copy_bytes": a.numel() * 4}
+    print(f"[train] 12a compression around kernel 1: A^T's contiguous copy alone "
+          f"({a.numel() * 4 / 1e6:.0f} MB) {t_copy:.4f} ms (graph); the basis "
+          f"(Omega ({cfg_v}, {COMP_RANK}) f32 drawn with eager int64 ops, then "
+          f"torch.linalg.qr) "
+          + ", ".join(f"{m} {t:.3f} ms" for m, t in draws.items())
+          + f" (host clock), of it the QR {t_qr:.4f} ms [{card}]")
+    return out
+
+
+def phase12_steps(torch, dev, card) -> dict:
+    """12b: six steps of qwen3-0.6b at full width and depth in each of the
+    five configurations, each timed and traced; then the projection-error,
+    compression and microbatch gates on the captured embedding gradient."""
+    from repro_torch.convert import key_from_seed
+    from repro_torch.core import rsvd
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression, galore
+
+    cfg = R.get_arch(ARCH)
+    check(not cfg.use_flash_kernel, "training runs the plain attention")
+    params = launch.init_weights(cfg, seed=0, device=dev)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    adam_b, galore_b = galore.optimizer_state_bytes(params, rank=GALORE_RANK)
+    wire_full, wire_comp = compression.wire_bytes(params, rank=COMP_RANK)
+    print(f"[train] 12b {ARCH} at full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{T.param_count(cfg) / 1e6:.2f} M parameters, random f32 masters from "
+          f"seed 0, bf16 activations, plain attention); SyntheticLM seq "
+          f"{TRAIN_SEQ} x global batch {TRAIN_BATCH}, micro_batches={TRAIN_MICRO} "
+          f"(cut from train_4k's 4096 x 256); {TRAIN_STEPS} steps a "
+          f"configuration, lr {TRAIN_LR}; GaLore rank {GALORE_RANK} + "
+          f"{GALORE_OVERSAMPLE}, refresh_every={GALORE_REFRESH}; compression "
+          f"rank {COMP_RANK}")
+    real_rf = rsvd.range_finder
+    refresh_ms: list = []
+
+    def timed_rf(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_rf(*a, **kw)
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    out, grads = {}, {}
+    rsvd.range_finder = timed_rf
+    try:
+        for name in TRAIN_CONFIGS:
+            opt_ms: list = []
+            refresh_ms.clear()
+            tx = timed_optimizer(torch, training_optimizer(name), opt_ms,
+                                 grads if name == "adamw" else None)
+            step = R.make_train_step(cfg, tx, micro_batches=TRAIN_MICRO)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k1.launches = k2.launches = 0
+            p, s = params, step.init_opt(params)
+            losses, step_ms = [], []
+            for i in range(TRAIN_STEPS):
+                b = batches[i]
+                if i == TRAIN_TRACE_STEP:
+                    (p, s, met), wall, rows = traced_call(
+                        torch, lambda p=p, s=s, b=b: step(p, s, b))
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    p, s, met = step(p, s, b)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+            launches = {"shgemm": k1.launches, "shgemm_fused": k2.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy = sum(rows.values())
+            kern = {k: v for k, v in rows.items()
+                    if any(n in k for n in SHGEMM_NAMES)}
+            state_b = tree_bytes(s)
+            rec = {"losses": losses, "step_ms": step_ms,
+                   "median_step_ms": sorted(step_ms)[len(step_ms) // 2],
+                   "optimizer_ms": opt_ms,
+                   "median_optimizer_ms": sorted(opt_ms)[len(opt_ms) // 2],
+                   "refresh_ms": list(refresh_ms), "traced_wall_ms": wall,
+                   "traced_device_ms": busy, "kernel_device_ms": kern,
+                   "top_kernels": sorted(rows.items(), key=lambda r: -r[1])[:10],
+                   "peak_gib": peak, "state_bytes": state_b,
+                   "launches": launches}
+            out[name] = rec
+            check(all(math.isfinite(v) for v in losses),
+                  f"training {name}: a loss is not finite: {losses}")
+            print(f"[train] 12b {name}: losses "
+                  f"{[round(v, 4) for v in losses]}; step {rec['median_step_ms']:.1f} "
+                  f"ms (median of {len(step_ms)} untraced), optimizer "
+                  f"{rec['median_optimizer_ms']:.2f} ms (median), refreshes "
+                  f"{[round(v, 3) for v in refresh_ms]} ms; traced step "
+                  f"{TRAIN_TRACE_STEP + 1}: wall {wall:.1f} ms, device {busy:.1f} ms "
+                  f"(busy {100 * busy / wall:.0f}%), kernels 1-2 by the profiler "
+                  + (", ".join(f"{k[:60]} {v:.4f} ms" for k, v in kern.items())
+                     or "none")
+                  + "; top kernels "
+                  + ", ".join(f"{k[:40]} {v:.1f} ms" for k, v in
+                              sorted(rows.items(), key=lambda r: -r[1])[:5])
+                  + f"; peak memory {peak:.2f} GiB; optimizer state {state_b} B "
+                  f"(optimizer_state_bytes: Adam {adam_b}, GaLore {galore_b}; "
+                  f"wire_bytes: full {wire_full}, compressed {wire_comp}); "
+                  f"launches {launches} [{card}]")
+            del p, s, met
+            torch.cuda.empty_cache()
+    finally:
+        rsvd.range_finder = real_rf
+
+    n_refresh = len(range(1, TRAIN_STEPS + 1, GALORE_REFRESH))
+    check(out["galore shgemm_fused"]["launches"]["shgemm_fused"] == n_refresh
+          and out["galore shgemm_pallas"]["launches"]["shgemm"] == n_refresh
+          and out["compressed adamw"]["launches"]["shgemm"] == TRAIN_STEPS,
+          f"a kernel of the training path was not launched as expected: "
+          f"{ {n: r['launches'] for n, r in out.items()} }")
+    # the formula counts the moments and bases; the states add the int32
+    # step counter and GaLore's two uint32 key words
+    check(out["galore f32"]["state_bytes"] == galore_b + 4 + 8
+          and out["adamw"]["state_bytes"] == adam_b + 4,
+          "optimizer state bytes differ from optimizer_state_bytes()")
+
+    # gates on the captured embedding gradient, scaled by a power of two to
+    # unit RMS (exact), so that the absolute tolerances mean what they say
+    g = grads["embed/tokens"]
+    scale = 2.0 ** -round(math.log2(float(g.square().mean().sqrt())))
+    g = g * scale
+    key = key_from_seed(1729)
+    errs = {}
+    for m in ("f32", "shgemm_pallas", "shgemm_fused"):
+        q = rsvd.range_finder(key, g, GALORE_RANK, oversample=GALORE_OVERSAMPLE,
+                              method=m)[:, :GALORE_RANK]
+        errs[m] = float(rsvd.projection_error(g, q) / torch.linalg.norm(g))
+    limit = 1.5 * errs["f32"] + 1e-7
+    check(errs["shgemm_fused"] <= limit and errs["shgemm_pallas"] <= limit,
+          f"GaLore projection error over phase 3's limit: {errs}, limit {limit}")
+    leaf = {"embed/tokens": g}
+    st0 = compression.init_state(leaf)
+    red = {m: compression.compress_and_reduce(leaf, st0, rank=COMP_RANK,
+                                              method=m)[0]["embed/tokens"]
+           for m in ("f32", "shgemm_pallas")}
+    comp_rel = float((red["shgemm_pallas"] - red["f32"]).norm() / red["f32"].norm())
+    check(comp_rel <= 1e-4, f"compression through kernel 1 vs f32: {comp_rel:.3e}")
+    norm = grads["final_norm/scale"]
+    micro = [{"embed/tokens": (0.3 + 0.2 * j) * torch.roll(g, 997 * j, 0),
+              "final_norm/scale": (0.3 + 0.2 * j) * norm} for j in range(MICRO_SPLIT)]
+    total = {k: sum(mb[k] for mb in micro) for k in micro[0]}
+    st = compression.init_state(total)
+    one, one_st = compression.compress_and_reduce(total, st, rank=COMP_RANK,
+                                                  method="shgemm_fused")
+    ms = compression.begin_accumulation(st, micro[0], rank=COMP_RANK,
+                                        method="shgemm_fused")
+    for mb in micro:
+        ms = compression.accumulate_microbatch(ms, mb, method="shgemm_fused")
+    acc, acc_st = compression.finish_accumulation(ms)
+    mb_err = (acc["embed/tokens"] - one["embed/tokens"]).abs().max().item()
+    check(torch.allclose(acc["embed/tokens"], one["embed/tokens"], rtol=1e-4, atol=1e-4)
+          and torch.allclose(acc_st.residual["embed/tokens"],
+                             one_st.residual["embed/tokens"], rtol=1e-4, atol=1e-4)
+          and torch.equal(acc["final_norm/scale"], one["final_norm/scale"]),
+          f"microbatch accumulation != compress_and_reduce of the sum ({mb_err:.3e})")
+    out["gates"] = {"projection_error": errs, "limit": limit,
+                    "compression_rel": comp_rel, "microbatch_max_abs": mb_err,
+                    "grad_scale": scale}
+    print(f"[train] 12b gates on the step-1 embedding gradient ({tuple(g.shape)}, "
+          f"scaled by 2^{round(math.log2(scale))} to unit RMS): GaLore's range "
+          f"finder rank {GALORE_RANK} + {GALORE_OVERSAMPLE}, ||G - PP^T G||/||G|| "
+          + ", ".join(f"{m} {e:.6e}" for m, e in errs.items())
+          + f" (limit 1.5x f32 + 1e-7 = {limit:.6e}); compression rank {COMP_RANK} "
+          f"through kernel 1 vs f32 on the same Q: ||d||/||ref|| {comp_rel:.3e} "
+          f"(<= 1e-4); {MICRO_SPLIT} microbatches accumulated vs compress_and_reduce "
+          f"of their sum: max|d| {mb_err:.3e} (rtol 1e-4, atol 1e-4), the norm "
+          f"leaf bit for bit [{card}]")
+    del params, grads, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12_loop(tmp: str) -> dict:
+    """12c, in a child process with deterministic algorithms: ``train`` with
+    GaLore (kernel 2) on qwen3-0.6b cut to LOOP_LAYERS layers, checkpoints
+    every LOOP_EVERY steps; the uninterrupted run, a run to LOOP_RESUME_AT
+    resumed to TRAIN_STEPS, and a run whose step raises once, compared bit
+    for bit.  Returns what it measured."""
+    import shutil
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry as R
+    from repro_torch.optim import galore
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import LoopConfig, train
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    dev = torch.device("cuda")
+    cfg = R.get_arch(ARCH).with_(n_layers=LOOP_LAYERS)
+    params = launch.init_weights(cfg, seed=0, device=dev)
+    tx = galore.galore(TRAIN_LR, rank=GALORE_RANK, refresh_every=GALORE_REFRESH,
+                       method="shgemm_fused", oversample=GALORE_OVERSAMPLE)
+    step = R.make_train_step(cfg, tx, micro_batches=TRAIN_MICRO)
+    opt0 = step.init_opt(params)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       seed=0)
+
+    def same(x, y):
+        xs, ys = tree_tensors(x), tree_tensors(y)
+        return len(xs) == len(ys) and all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in zip(xs, ys))
+
+    def run(name, total, fn=step):
+        lcfg = LoopConfig(total_steps=total, ckpt_every=LOOP_EVERY,
+                          ckpt_dir=str(tmp / name), keep=2)
+        t0 = time.perf_counter()
+        res = train(fn, params, opt0, data, lcfg, return_state=True)
+        return res, time.perf_counter() - t0
+
+    out = {}
+    k2.launches = 0
+    (p_c, o_c, hist_c, st_c), t_clean = run("clean", TRAIN_STEPS)
+    ck_bytes = dir_bytes(tmp / "clean" / f"step_{TRAIN_STEPS}")
+    shutil.rmtree(tmp / "clean")
+    out["clean"] = {"losses": [h["loss"] for h in hist_c],
+                    "step_s": [h["dt"] for h in hist_c], "seconds": t_clean,
+                    "retries": st_c.retries, "rollbacks": st_c.rollbacks,
+                    "checkpoint_bytes": ck_bytes, "kernel2_launches": k2.launches}
+    (p4, o4, _, st4), t_first = run("resume", LOOP_RESUME_AT)
+    (saved, step_saved) = CheckpointManager(tmp / "resume").restore((p4, o4))
+    out["restored_bitwise"] = step_saved == LOOP_RESUME_AT and same(saved, (p4, o4))
+    del saved
+    (p_r, o_r, hist_r, st_r), t_resume = run("resume", TRAIN_STEPS)
+    shutil.rmtree(tmp / "resume")
+    out["resume"] = {"resumed_from": st_r.resumed_from,
+                     "steps": [h["step"] for h in hist_r],
+                     "losses": [h["loss"] for h in hist_r],
+                     "seconds": [t_first, t_resume],
+                     "retries": st4.retries + st_r.retries,
+                     "rollbacks": st4.rollbacks + st_r.rollbacks,
+                     "bitwise": same((p_r, o_r), (p_c, o_c)),
+                     "losses_equal": [h["loss"] for h in hist_r]
+                     == out["clean"]["losses"][LOOP_RESUME_AT:]}
+    del p_r, o_r, p4, o4
+    calls = {"n": 0}
+
+    def flaky(p, o, b):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("simulated preemption")
+        return step(p, o, b)
+
+    (p_f, o_f, hist_f, st_f), t_flaky = run("flaky", TRAIN_STEPS, flaky)
+    shutil.rmtree(tmp / "flaky")
+    out["flaky"] = {"retries": st_f.retries, "rollbacks": st_f.rollbacks,
+                    "steps": len(hist_f), "seconds": t_flaky,
+                    "bitwise": same((p_f, o_f), (p_c, o_c))}
+    out["deterministic"] = torch.are_deterministic_algorithms_enabled()
+    out["cublas_workspace"] = __import__("os").environ.get("CUBLAS_WORKSPACE_CONFIG")
+    return out
+
+
+def phase12_rank(rank, world, dev, *, grad_seed, method, shape):
+    """12d: one gloo rank's compress_and_reduce over the world's group on a
+    full-size embedding gradient and one norm leaf (rank r's gradients come
+    from seed grad_seed + r, so each rank can make every rank's), against
+    the mean of every rank's single-process g_hat made here."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import shgemm as k1
+    from repro_torch.optim import compression
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def grads_of(r):
+        gen = torch.Generator(device=dev).manual_seed(grad_seed + r)
+        return {"embed/tokens": torch.randn(shape, generator=gen, device=dev),
+                "final_norm/scale": torch.randn(shape[1:], generator=gen, device=dev)}
+
+    mine = grads_of(rank)
+    st = compression.init_state(mine)
+    k1.launches = 0
+    compression.compress_and_reduce(mine, st, rank=COMP_RANK, method=method,
+                                    group=dist.group.WORLD)      # warm-up
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    red, new_st = compression.compress_and_reduce(mine, st, rank=COMP_RANK,
+                                                  method=method, group=dist.group.WORLD)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = k1.launches
+    singles = [compression.compress_and_reduce(grads_of(r), st, rank=COMP_RANK,
+                                               method=method)[0]["embed/tokens"]
+               for r in range(world)]
+    mean = sum(singles) / world
+    got = red["embed/tokens"]
+    norm_sum = sum(grads_of(r)["final_norm/scale"] for r in range(world))
+    res_want = mine["embed/tokens"] - world * mean
+    return {"max_abs": (got - mean).abs().max().item(),
+            "rel": float((got - mean).norm() / mean.norm()),
+            "ok": bool(torch.allclose(got, mean, rtol=1e-4, atol=1e-6)),
+            "residual_ok": bool(torch.allclose(new_st.residual["embed/tokens"],
+                                               res_want, rtol=1e-4, atol=1e-4)),
+            "norm_exact": bool(torch.equal(red["final_norm/scale"], norm_sum)),
+            "ms": ms, "launches": launches}
+
+
+def phase12_training(torch, dev, card) -> dict:
+    """Phase 12: 12a kernels at the slice's shapes, 12b the five training
+    configurations at full width and depth with their gates, 12c the loop's
+    checkpoints, resume and retry in a deterministic child, 12d compression
+    across two gloo ranks on the card."""
+    import os
+    import tempfile
+
+    from repro_torch.convert import key_from_seed
+    from repro_torch.launch import world
+    from repro_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    cfg = R.get_arch(ARCH)
+    out = {"kernels": phase12_kernels(torch, dev, card, key_from_seed(20), cfg)}
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    out["steps"] = phase12_steps(torch, dev, card)
+    t_b = time.perf_counter()
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", LOOP_CHILD, str(ROOT), tmp],
+            capture_output=True, text=True, timeout=LOOP_TIMEOUT,
+            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        t_child = time.perf_counter() - t0
+    check(child.returncode == 0, f"the 12c child failed: rc {child.returncode}, "
+          f"{child.stderr[-3000:]}")
+    loop = json.loads(child.stdout.strip().splitlines()[-1])
+    out["loop"] = loop
+    c, r, f = loop["clean"], loop["resume"], loop["flaky"]
+    check(loop["deterministic"] and loop["cublas_workspace"] == ":4096:8",
+          "the 12c child did not run deterministic")
+    check(c["retries"] == c["rollbacks"] == r["retries"] == r["rollbacks"] == 0,
+          f"a clean run retried or rolled back: {c}, {r}")
+    check(all(math.isfinite(v) for v in c["losses"]), f"12c losses {c['losses']}")
+    check(c["kernel2_launches"] > 0, "kernel 2 never launched in the loop")
+    check(loop["restored_bitwise"], "restored params / optimizer state != the saved ones")
+    check(r["resumed_from"] == LOOP_RESUME_AT and r["bitwise"] and r["losses_equal"],
+          f"the resumed run != the uninterrupted run bit for bit: {r}")
+    check(f["retries"] == 1 and f["rollbacks"] == 0 and f["bitwise"],
+          f"a step raising once: {f}")
+    print(f"[train] 12c train() with GaLore shgemm_fused on {ARCH} cut to "
+          f"{LOOP_LAYERS} layers at full width, a checkpoint every {LOOP_EVERY} "
+          f"steps ({c['checkpoint_bytes'] / 2**30:.2f} GiB each), in a child with "
+          f"torch.use_deterministic_algorithms(True) and CUBLAS_WORKSPACE_CONFIG="
+          f":4096:8: {TRAIN_STEPS} clean steps in {c['seconds']:.1f} s (steps "
+          f"{[round(s * 1e3, 1) for s in c['step_s']]} ms, losses "
+          f"{[round(v, 4) for v in c['losses']]}), 0 retries, 0 rollbacks; "
+          f"{LOOP_RESUME_AT} steps then resumed to {TRAIN_STEPS} ({r['seconds'][0]:.1f} "
+          f"+ {r['seconds'][1]:.1f} s): restored state == saved bit for bit, "
+          f"resumed params and optimizer state == the uninterrupted run's bit for "
+          f"bit; a step raising once: {f['retries']} retry, {f['rollbacks']} "
+          f"rollbacks, params == the clean run's bit for bit; kernel 2 launches "
+          f"{c['kernel2_launches']} in the clean run; child {t_child:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    ranks = world.run_world("chip_smoke:phase12_rank", TRAIN_WORLD,
+                            kwargs={"grad_seed": 77, "method": "shgemm_fused",
+                                    "shape": (cfg.vocab, cfg.d_model)},
+                            backend="gloo", device="cuda", timeout=DIST_TIMEOUT)
+    t_world = time.perf_counter() - t0
+    check(all(x["ok"] and x["residual_ok"] and x["norm_exact"] for x in ranks),
+          f"compression over the group != the mean of single-process results: {ranks}")
+    check(all(x["launches"] > 0 for x in ranks), "kernel 1 never launched by a rank")
+    out["world"] = {"ranks": ranks, "world_s": t_world}
+    out["sub_seconds"] = {"12a": t_a - t_phase, "12b": t_b - t_a, "12c": t_child,
+                          "12d": t_world}
+    print(f"[train] 12d compress_and_reduce (shgemm_fused, rank {COMP_RANK}) over a "
+          f"{TRAIN_WORLD}-rank gloo group on the one card, each rank a different "
+          f"({cfg.vocab}, {cfg.d_model}) embedding gradient and a norm leaf: the group result vs "
+          f"the mean of the ranks' single-process g_hat, max|d| "
+          f"{max(x['max_abs'] for x in ranks):.3e}, ||d||/||mean|| "
+          f"{max(x['rel'] for x in ranks):.3e} (rtol 1e-4, atol 1e-6); residuals "
+          f"within rtol 1e-4 / atol 1e-4; the norm leaf the exact sum; "
+          f"{[round(x['ms'], 2) for x in ranks]} ms a call by rank; kernel 1 "
+          f"launches by rank {[x['launches'] for x in ranks]}; the world took "
+          f"{t_world:.1f} s [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase 12 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["sub_seconds"].items()) + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2244,6 +2858,13 @@ def run(torch) -> int:
     dist11 = phase11_distributed(torch, dev, card)
     print(f"[dist] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 12. training with the paper's RandNLA optimizers -----------------
+    # the serving slice's weights and engine are done with: free the card
+    del masters, weights
+    engine.pop("engine", None)
+    torch.cuda.empty_cache()
+    train12 = phase12_training(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -2268,6 +2889,15 @@ def run(torch) -> int:
         rec["distributed_launches"] = {
             "ranks": [lc[rec["name"]] for lc in dist11["rank_launches"]],
             "streamed": dist11["streamed"]["launches"][rec["name"]]}
+        rec["training_launches"] = {
+            name: r["launches"][rec["name"]]
+            for name, r in train12["steps"].items() if name in TRAIN_CONFIGS}
+        rec["training_per_shape"] = [
+            {"what": key[1], **r} for key, r in train12["kernels"].items()
+            if key[0] == rec["name"]]
+    kernels[1]["training_launches"]["loop"] = train12["loop"]["clean"]["kernel2_launches"]
+    kernels[0]["training_launches"]["world_ranks"] = [
+        x["launches"] for x in train12["world"]["ranks"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

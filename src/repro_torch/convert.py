@@ -2,8 +2,10 @@
 
 What crosses from the JAX package is its PRNG key (as the (1, 2) uint32 key
 words its fused kernel hashes), its arrays (inputs, a materialized Omega,
-results) as numpy arrays, and the transformer's flat parameter dict
-(``params_from_reference``).
+results) as numpy arrays, the transformer's flat parameter dict
+(``params_from_reference``) and an optimizer's state
+(``opt_state_from_reference``): with both, a run started in the reference
+continues in the port on the same numbers.
 """
 
 from __future__ import annotations
@@ -68,3 +70,40 @@ def params_from_reference(params: dict, cfg, *, device=None) -> dict:
                              f"{defs[name].shape}")
         out[name] = t if device is None else t.to(device)
     return out
+
+
+# Top-level leaves of an optimizer state that the port keeps on the CPU:
+# the step counters (read on the host) and GaLore's key words.
+_HOST_LEAVES = ("t", "key", "step")
+
+
+def opt_state_from_reference(state, *, device=None):
+    """The port's optimizer state from the reference's: an AdamW, Adafactor
+    or SGD state dict, a GaLore state (``{"leaves": {name: _Leaf(proj, m,
+    v)}, "t", "key"}``) or a ``compression.CompressionState``, with jax or
+    numpy arrays as leaves.  Leaves keep their dtype; the step counters and
+    GaLore's key words stay on the CPU (where the port's optimizers keep
+    them), every other leaf goes to ``device`` (the CPU if None)."""
+    from repro_torch.optim.compression import CompressionState
+    from repro_torch.optim.galore import _Leaf
+
+    def conv(x, host: bool):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v, False) for k, v in x.items()}
+        fields = getattr(x, "_fields", None)
+        if fields == _Leaf._fields:
+            return _Leaf(*(conv(v, False) for v in x))
+        if fields is not None:
+            raise ValueError(f"unknown optimizer state node {type(x).__name__}"
+                             f"{fields}")
+        t = from_reference(x)
+        return t if host or device is None else t.to(device)
+
+    if getattr(state, "_fields", None) == CompressionState._fields:
+        return CompressionState(conv(state.residual, False),
+                                conv(state.step, True))
+    if not isinstance(state, dict):
+        raise ValueError(f"unknown optimizer state {type(state).__name__}")
+    return {k: conv(v, k in _HOST_LEAVES) for k, v in state.items()}

@@ -1,18 +1,25 @@
-"""Out-of-core matrix layouts of the tile sources (port of the shard writers
-of ``repro/data/pipeline.py``).
+"""Token pipelines of the training slice and the out-of-core matrix
+layouts of the tile sources (port of ``repro/data/pipeline.py``).
 
+  * :class:`SyntheticLM`: a seeded zipfian token stream (no dataset is
+    needed);
+  * :class:`MemmapTokens`: windows of a flat int32 token file read through
+    ``np.memmap`` (one file per host shard), written by
+    :func:`write_token_file`;
   * :func:`write_matrix_npy`: one ``.npy`` file, the ``stream.MemmapSource``
     layout;
   * :func:`write_matrix_shards`: a directory of zero-padded axis-0 ``.npy``
     row shards plus its ``manifest.json`` (:func:`write_shard_manifest`),
     the ``stream.DirectorySource`` / ``stream.ObjectStoreSource`` layout.
 
-The token pipelines of the reference module (``SyntheticLM``,
-``MemmapTokens``) belong to the training slice, ROADMAP item 17.
+Determinism: ``batch(step)`` is a pure function of (seed, step, host_id),
+so a run restored at step N continues on the identical stream with no
+iterator state to checkpoint, and its batches equal the reference's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -20,7 +27,70 @@ import numpy as np
 from repro_torch._atomic_io import atomic_write_json
 from repro_torch.stream.source import check_shard_name_order
 
-__all__ = ["write_matrix_npy", "write_matrix_shards", "write_shard_manifest"]
+__all__ = ["SyntheticLM", "MemmapTokens", "write_token_file",
+           "write_matrix_npy", "write_matrix_shards", "write_shard_manifest"]
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    host_id: int = 0
+    num_hosts: int = 1
+    zipf_a: float = 1.2
+
+    @property
+    def host_batch(self) -> int:
+        if self.global_batch % self.num_hosts:
+            raise ValueError(f"global_batch={self.global_batch} does not "
+                             f"split over {self.num_hosts} hosts")
+        return self.global_batch // self.num_hosts
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id]))
+        # zipf over a capped support, shifted into [0, vocab)
+        raw = rng.zipf(self.zipf_a, size=(self.host_batch, self.seq_len + 1))
+        toks = (raw - 1) % self.vocab
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+
+@dataclasses.dataclass
+class MemmapTokens:
+    path: str | Path
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    host_id: int = 0
+    num_hosts: int = 1
+
+    def __post_init__(self):
+        self._data = np.memmap(self.path, dtype=np.int32, mode="r")
+        self._n_windows = (len(self._data) - 1) // self.seq_len
+        if self._n_windows < 1:
+            raise ValueError(f"{self.path}: {len(self._data)} tokens hold no "
+                             f"window of {self.seq_len} + 1")
+
+    @property
+    def host_batch(self) -> int:
+        return self.global_batch // self.num_hosts
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id]))
+        idx = rng.integers(0, self._n_windows, size=self.host_batch)
+        starts = idx * self.seq_len
+        toks = np.stack([self._data[s:s + self.seq_len + 1] for s in starts])
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+
+def write_token_file(path: str | Path, tokens: np.ndarray) -> None:
+    """Write a flat int32 token file (the ``MemmapTokens`` layout)."""
+    np.asarray(tokens, np.int32).tofile(path)
 
 
 def write_matrix_npy(path: str | Path, a, dtype=np.float32) -> Path:

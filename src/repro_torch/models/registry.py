@@ -1,9 +1,11 @@
-"""Arch registry and the serving steps (port of the serving part of
+"""Arch registry, the train step and the serving steps (port of
 ``repro/models/registry.py``).
 
-``make_prefill_step`` and ``make_serve_step`` return plain functions of
-(params, batch); PyTorch runs them eagerly, so there is nothing to jit.
-The train step is not ported (ROADMAP Queue 1 item 17).
+``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
+plain functions; PyTorch runs them eagerly, so there is nothing to jit.
+The reference's abstract input specs (``input_specs``,
+``materialize_inputs``, ``step_for``) serve its XLA dry-run and are not
+ported (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -16,12 +18,80 @@ from repro_torch.configs.archs import ARCHS
 from repro_torch.configs.base import ModelCfg, smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import softcap
+from repro_torch.optim import optimizers as opt_mod
 
 
 def get_arch(name: str) -> ModelCfg:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def make_train_step(cfg: ModelCfg, optimizer="adamw", lr: float = 3e-4,
+                    micro_batches: int = 1) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics), with
+    metrics ``{"loss", "grad_norm"}`` (f32 scalar tensors).
+
+    ``optimizer`` is a name of ``optim.optimizers.get`` (the reference's
+    ``adamw | adafactor | sgd``) or an ``Optimizer`` (``optim.galore``'s,
+    or one that compresses the gradients first).  ``batch`` holds
+    ``tokens`` and ``labels`` (B, S), tensors or numpy arrays; they go to
+    the params' device.  Autograd takes the place of ``jax.value_and_grad``:
+    the f32 masters are cast for compute once a step, and
+    ``micro_batches > 1`` splits the batch, runs one backward a microbatch
+    (one microbatch of activations alive at a time), sums the cast
+    weights' gradients in their dtype and averages the loss, as the
+    reference's scan does.  Nothing is updated in place: new params and
+    state are returned.
+
+    Kernel 3 has no backward in either package, so a configuration with
+    ``use_flash_kernel`` set is refused."""
+    if cfg.use_flash_kernel:
+        raise ValueError("the flash-attention kernel has no backward: train "
+                         "with use_flash_kernel=False (the reference's "
+                         "training default)")
+    tx = opt_mod.get(optimizer, lr) if isinstance(optimizer, str) else optimizer
+
+    def step(params, opt_state, batch):
+        dev = next(iter(params.values())).device
+        batch = {k: torch.as_tensor(batch[k]).to(dev, torch.long)
+                 for k in ("tokens", "labels")}
+        b = batch["tokens"].shape[0]
+        if b % micro_batches:
+            raise ValueError(f"batch {b} does not split into {micro_batches} "
+                             f"microbatches")
+        # the cast copies are the leaves autograd differentiates; their
+        # gradients cross the cast to the masters' dtype at the end, as the
+        # reference's cotangents do
+        with torch.no_grad():
+            cast = T.cast_params_for_compute(cfg, params)
+        leaves = {k: w.detach().requires_grad_() for k, w in cast.items()}
+        names = sorted(leaves)
+        inputs = [leaves[k] for k in names]
+        acc, total = None, None
+        for j in range(micro_batches):
+            mb = {k: v.chunk(micro_batches)[j] for k, v in batch.items()}
+            loss = T.loss_fn(cfg, leaves, mb)
+            gs = torch.autograd.grad(loss / micro_batches, inputs,
+                                     allow_unused=True, materialize_grads=True)
+            acc = list(gs) if acc is None else [a + g for a, g in zip(acc, gs)]
+            loss = loss.detach()
+            total = loss if total is None else total + loss
+        grads = {k: g.to(params[k].dtype) for k, g in zip(names, acc)}
+        del acc, leaves, inputs, cast
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = {k: params[k] + updates[k] for k in params}
+        gnorm = torch.sqrt(sum(torch.vdot(grads[k].reshape(-1),
+                                          grads[k].reshape(-1))
+                               for k in names))
+        return params, opt_state, {"loss": total / micro_batches,
+                                   "grad_norm": gnorm}
+
+    def init_opt(params):
+        return tx.init(params)
+
+    step.init_opt = init_opt
+    return step
 
 
 def _final_logits(cfg, logits: torch.Tensor) -> torch.Tensor:
@@ -63,5 +133,5 @@ def make_serve_step(cfg: ModelCfg) -> Callable:
     return step
 
 
-__all__ = ["ARCHS", "get_arch", "smoke_config", "make_prefill_step",
-           "make_serve_step"]
+__all__ = ["ARCHS", "get_arch", "smoke_config", "make_train_step",
+           "make_prefill_step", "make_serve_step"]

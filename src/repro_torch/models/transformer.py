@@ -16,8 +16,12 @@ scan leaves stacked over periods.  Decode writes the new token's k/v into
 the cache IN PLACE (write-then-attend) and returns the same cache object;
 the reference returns an updated copy.
 
-Served here: ``mixer="attn"`` with ``ffn="mlp"``, full-context or
-windowed prefill, full-context decode with or without the factored prefix.
+Served and trained here: ``mixer="attn"`` with ``ffn="mlp"``, full-context
+or windowed prefill, full-context decode with or without the factored
+prefix, and the single-card training loss (``cross_entropy``, ``loss_fn``;
+autograd runs through the forward, which never writes a tensor autograd
+saved: the only in-place writes are those of a cache, and training passes
+none).
 The reference's ``sharding.activation.constrain`` and the mesh branches of
 ``embed_tokens`` are no-ops on one card and are dropped.  What is not
 ported raises ``NotImplementedError`` naming its ROADMAP item.
@@ -44,7 +48,8 @@ _NOT_PORTED = {
     "encdec": "the enc-dec encoder (ROADMAP Queue 1 item 16f)",
     "vlm": "the VLM frontend (ROADMAP Queue 1 item 16f)",
     "window_decode": "windowed (ring) decode (ROADMAP Queue 1 item 16b)",
-    "train": "the training loss (ROADMAP Queue 1 item 17)",
+    "vocab_parallel": "the vocab-parallel loss across processes (ROADMAP "
+                      "Queue 1 item 16g)",
 }
 
 
@@ -157,7 +162,9 @@ def cast_params_for_compute(cfg: ModelCfg, params: dict) -> dict:
     """Cast the >= 2-D f32 masters to the activation dtype; norm scales stay
     f32.  The reference casts inside every step; the port's serving entry
     points cast once at load (the numbers are the same), after which this
-    returns the tensors it is given."""
+    returns the tensors it is given.  The cast is differentiable: the train
+    step's gradients reach the f32 masters through it, the bf16 cotangent
+    cast to f32 as in the reference."""
     dt = getattr(torch, cfg.activation_dtype)
     return {k: (w.to(dt) if w.dtype == torch.float32 and w.ndim >= 2 else w)
             for k, w in params.items()}
@@ -400,5 +407,33 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
     return ForwardOut(logits, new_cache)
 
 
-def loss_fn(cfg: ModelCfg, params: dict, batch: dict):
-    raise not_ported("train")
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  final_softcap: float = 0.0, *, mesh=None) -> torch.Tensor:
+    """Masked mean cross-entropy; labels < 0 are ignored (padding).  Logits
+    arrive in the activation dtype and are upcast (and softcapped) here, so
+    the cotangent leaving is in that dtype, as in the reference.
+
+    This is the reference's single-card branch.  Its vocab-parallel branch
+    (the vocab sharded over a mesh's ``model`` axis) is not ported: a
+    ``mesh`` (``launch.mesh.HostMesh``) with a model axis above 1 raises."""
+    if mesh is not None and "model" in mesh.shape and mesh.size("model") > 1:
+        raise not_ported("vocab_parallel")
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    lg = L.softcap(logits.float(), final_softcap)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+
+
+def loss_fn(cfg: ModelCfg, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
+    (B, S) integer tensors) under ``params`` (cast for compute by the
+    caller).  VLM and enc-dec configurations raise, as ``forward`` does."""
+    out = forward(cfg, params, batch["tokens"])
+    return cross_entropy(out.logits, batch["labels"], cfg.final_softcap)

@@ -770,3 +770,98 @@ def test_nccl_world_distributed_rsvd(gen, method):
         assert out["err"] <= limit
         torch.testing.assert_close(torch.from_numpy(out["s"])[:16],
                                    one.s[:16].cpu(), rtol=1e-2, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The training slice: GaLore's range finder and gradient compression through
+# kernels 1-2, the train step on the card
+# ---------------------------------------------------------------------------
+
+def _grads(shapes, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(s, generator=g).to(device) for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("method", ["shgemm_pallas", "shgemm_fused"])
+def test_galore_kernel_updates_match_plain(gen, method):
+    """Three GaLore steps (rank 16, refreshes at 1 and 3) on the card
+    through the kernel against the CPU's plain version of the same method:
+    ||update - plain|| / ||plain|| <= 1e-4 per leaf, the kernel launched."""
+    from repro_torch.optim import galore
+    shapes = {"tall": (512, 96), "wide": (64, 300), "b": (64,)}
+    tx = galore.galore(1e-2, rank=16, refresh_every=2, method=method)
+    counter = k2 if method == "shgemm_fused" else k1
+    before = counter.launches
+    params = {dev: _grads(shapes, 0, dev) for dev in ("cuda", "cpu")}
+    states = {dev: tx.init(params[dev]) for dev in params}
+    for step in range(3):
+        ups = {}
+        for dev in params:
+            ups[dev], states[dev] = tx.update(_grads(shapes, 10 + step, dev),
+                                              states[dev], params[dev])
+        for k in shapes:
+            want = ups["cpu"][k]
+            rel = (ups["cuda"][k].cpu() - want).norm() / want.norm()
+            assert rel <= 1e-4, (step, k, float(rel))
+    assert counter.launches >= before + 4       # two matrices, two refreshes
+
+
+@pytest.mark.parametrize("method", ["shgemm_pallas", "shgemm_fused"])
+def test_compression_kernel_matches_plain(gen, method, monkeypatch):
+    """compress_and_reduce on the card (kernel 1 on Q) against the CPU's
+    plain version on the same basis Q (bf16 rounds Q, so two QRs' 1e-7
+    differences would round some of it the other way): rtol 1e-4, atol
+    1e-4; the incompressible leaf bit for bit."""
+    from repro_torch.optim import compression
+    shapes = {"w": (1000, 96), "b": (96,)}
+    real = compression._draw_basis
+    bases = {}
+
+    def shared(key, i, d, rank, m, device):
+        if (key, i) not in bases:
+            bases[(key, i)] = real(key, i, d, rank, m, "cpu")
+        return bases[(key, i)].to(device)
+
+    monkeypatch.setattr(compression, "_draw_basis", shared)
+    grads = {dev: _grads(shapes, 3, dev) for dev in ("cpu", "cuda")}
+    st = {dev: compression.init_state(grads[dev]) for dev in grads}
+    before = k1.launches
+    for _ in range(2):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev], st[dev] = compression.compress_and_reduce(
+                grads[dev], st[dev], rank=32, method=method)
+        torch.testing.assert_close(out["cuda"]["w"].cpu(), out["cpu"]["w"],
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(out["cuda"]["b"].cpu(), out["cpu"]["b"])
+    assert k1.launches == before + 2
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "galore"])
+def test_train_step_on_card_matches_cpu(gen, optimizer):
+    """Two steps of the smoke qwen3 train step in f32 activations on the
+    card against the CPU: losses at rel 1e-5, params at atol 1e-5; GaLore's
+    range finder runs kernel 2."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import galore
+    cfg = smoke_config(R.get_arch("qwen3-0.6b")).with_(activation_dtype="float32")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    tx = (galore.galore(1e-3, rank=16, refresh_every=2, method="shgemm_fused")
+          if optimizer == "galore" else "adamw")
+    step = R.make_train_step(cfg, optimizer=tx, micro_batches=2)
+    out = {}
+    before = k2.launches
+    for dev in ("cpu", "cuda"):
+        p = launch.init_weights(cfg, seed=0, device="cpu")
+        p = {k: v.to(dev) for k, v in p.items()}
+        s = step.init_opt(p)
+        losses = []
+        for i in range(2):
+            p, s, m = step(p, s, data.batch(i))
+            losses.append(float(m["loss"]))
+        out[dev] = (p, losses)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-5)
+    for k, v in out["cpu"][0].items():
+        torch.testing.assert_close(out["cuda"][0][k].cpu(), v, rtol=0, atol=1e-5)
+    if optimizer == "galore":
+        assert k2.launches > before

@@ -24,6 +24,7 @@ from repro_torch.launch import world
 from repro_torch.launch.mesh import HostMesh
 from repro_torch.configs.base import smoke_config
 from repro_torch.launch import serve as launch
+from repro_torch.launch import train as launch_train
 from repro_torch.models import cache as cache_mod, registry as R
 from repro_torch.serve import kv_compress
 from repro_torch.serve.engine import Engine
@@ -59,13 +60,15 @@ def test_import_pulls_in_no_jax_or_reference():
 
 
 @pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data",
-                                 "core", "kernels"])
+                                 "core", "kernels", "optim", "train"])
 def test_serving_subpackages_import_without_jax(sub):
     """Each subpackage (the serving slice's; ``stream`` with its object-store
-    and resilience modules; ``data``; ``launch`` with the mesh and the world
-    launcher; ``core`` with the distributed layer; ``kernels`` with the
-    autotuner), imported on its own in a fresh interpreter, leaves 'jax'
-    and 'repro' out of sys.modules."""
+    and resilience modules; ``data`` with the token pipelines; ``launch``
+    with the mesh, the world launcher and the train launcher; ``core`` with
+    the distributed layer; ``kernels`` with the autotuner; ``optim`` with
+    GaLore and compression; ``train`` with the loop and its checkpoints),
+    imported on its own in a fresh interpreter, leaves 'jax' and 'repro'
+    out of sys.modules."""
     code = (f"import importlib, pkgutil, sys\n"
             f"import repro_torch.{sub} as p\n"
             f"for m in pkgutil.walk_packages(p.__path__, 'repro_torch.{sub}.'):\n"
@@ -161,6 +164,10 @@ ENTRY_POINTS = {
     "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "run_engine": lambda **d: launch.run_engine(
         _SMOKE, _SMOKE_PARAMS, [[1, 2]], max_new=2, slots=1, max_seq=8, **d),
+    "launch.train": lambda **d: launch_train.main(
+        ["--smoke", "--steps", "1", "--seq", "8", "--global-batch", "2",
+         "--ckpt-dir", tempfile.mkdtemp()]
+        + (["--device", d["device"]] if d else [])),
 }
 
 

@@ -186,9 +186,16 @@ def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
 
 
 def test_training_and_windowed_decode_raise():
+    """Training is ported (tests/test_torch_train.py); what it does not
+    cover raises: the vocab-parallel loss and the VLM's loss."""
+    from repro_torch.launch.mesh import HostMesh
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16g"):
+        T.cross_entropy(torch.zeros((1, 2, 8)), torch.zeros((1, 2), dtype=torch.long),
+                        mesh=HostMesh((1, 2)))
+    with pytest.raises(NotImplementedError, match="VLM.*ROADMAP Queue 1 item 16f"):
+        T.loss_fn(smoke_config(R.get_arch("llava-next-34b")), {},
+                  {"tokens": torch.zeros((1, 2), dtype=torch.long)})
     cfg = smoke_config(R.get_arch("gemma2-2b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        T.loss_fn(cfg, {}, {})
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     cache = C.build_cache(cfg, 1, 8, device="cpu")       # window 16 >= 8: ring
     with pytest.raises(NotImplementedError, match="windowed"):

@@ -113,3 +113,25 @@ def rsvd_case(rank, world, dev, *, sizes, a, rank_k, method):
                       a_blk.square().sum()])
     dist.all_reduce(sq)
     return {"err": float(torch.sqrt(sq[0] / sq[1])), "s": _np(res.s)}
+
+
+def compression_case(rank, world, dev, *, grads, rank_k):
+    """``optim.compression`` over the world's group: one step of
+    ``compress_and_reduce`` on this rank's gradients, and the microbatch path
+    on them in two halves."""
+    from repro_torch.optim import compression
+
+    mine = {k: torch.from_numpy(v.copy()).to(dev) for k, v in grads[rank].items()}
+    group = dist.group.WORLD
+    st = compression.init_state(mine)
+    red, new_st = compression.compress_and_reduce(mine, st, rank=rank_k,
+                                                  group=group)
+    ms = compression.begin_accumulation(st, mine, rank=rank_k)
+    for half in (0.25, 0.75):
+        ms = compression.accumulate_microbatch(
+            ms, {k: g * half for k, g in mine.items()})
+    red_mb, _ = compression.finish_accumulation(ms, group=group)
+    return {"oneshot": {k: v.cpu() for k, v in red.items()},
+            "micro": {k: v.cpu() for k, v in red_mb.items()},
+            "residual": {k: v.cpu() for k, v in new_st.residual.items()
+                         if v is not None}}
