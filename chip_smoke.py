@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 450 s on an H100, the build included).
+(about 620 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -21,7 +21,8 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    A_linear, RP-HOSVD and RP-ST-HOSVD on 256^3 with ranks 32^3) through
    every method, with the reference's error limits and the kernels' launch
    and split-K reduction counts;
-4. timings (median over CUDA events, and device time from torch.profiler):
+4. timings (median over CUDA events, and device time from torch.profiler,
+   each with the launches its trace held beside the launches the calls made):
    kernels 1 and 2 under the plans the main path launches
    (``autotune.pick_blocks``: the shipped cache, else the planners
    ``ops.shgemm_plan`` and ``ops.fused_plan``, which are timed too where
@@ -36,16 +37,20 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    decode at the engine's shape (8, 2048, 8, 128), r = 32, comp_len mixed,
    write_pos mid-cache, garbage past it, NaN factors where comp_len = 0, and
    at the full slot (write_pos 2047, comp_len up to 1984); write_pos as an
-   int32 on the card bit-equal to the int, two calls bit-equal;
+   int32 on the card bit-equal to the int, two calls bit-equal; and at
+   gemma2-2b's engine shape (8, 8192, 4, 256), G 2, r = 32, softcap 50,
+   early (write_pos 4700) and at the full slot;
 6. prefill at full width (28 layers, random weights from a seed; batch cut
    from 32 to 1): ``make_prefill_step`` with kernel 3 vs the plain
    attention, then grow_cache + one decode step vs a full forward, in bf16
-   activations (counted, timed) and in f32 activations;
+   activations (counted, timed) and in f32 activations (the first 8
+   layers);
 7. the engine at full width (8 slots x 2048, rank-32 sketches swapping
    every 64 rows, 8 prompts of 128 tokens, 96 new): kernel vs plain
    engines in teacher-forced lockstep in bf16 (kernel 4's launches
-   counted) and in f32, one traced swap, then the bf16 kernel engine alone
-   (tokens/s, decode step, peak memory, one traced decode step);
+   counted) and in f32 (its first 8 layers), then the bf16 kernel engine
+   alone (tokens/s, decode step, peak memory, one traced decode step, one
+   traced swap);
 8. timings of kernels 3-4: kernel, plain version, bound and library call
    (``scaled_dot_product_attention`` for flash; none exists for factored
    decode); kernel 4 at the engine's final state and at the full slot, by
@@ -110,6 +115,24 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    retried bit for bit, no retry in the clean runs; (12d) compression over
    a two-rank gloo group on the card against the mean of the ranks'
    single-process results.
+13. open-loop serving through the continuous-batching scheduler
+   (``launch.serve.run_scheduler``) at full width and depth, random bf16
+   weights from a seed: (13a) qwen3-0.6b, 8 slots x 2048, rank-32 sketches
+   swapping every 64 rows, prefill chunks of 256, a seeded Poisson trace of
+   16 requests at 200 req/s (virtual clock), through kernel 4 and through
+   the plain path (the virtual-clock SLO summaries must be equal), then
+   under an hbm_budget that admits 4 streams; (13b) gemma2-2b, 8 slots x
+   8192 (its local layers 4096-row rings that wrap, with rolling sketches;
+   its 13 global layers decode through kernel 4 at head_dim 256, G 2,
+   softcap 50), chunks of 512, 8 requests with half their prompts past
+   4096: wall tokens/s and drain time, the median decode step, one traced
+   decode step, peak memory, virtual-clock p50/p99 TTFT, TPOT and latency;
+   every request accounted; one request of each replayed in lockstep,
+   kernel path vs plain, to the bf16 logits gate with equal comp_len; one
+   traced gemma2 ``compress_slot``; kernel 4 timed at gemma2's shape;
+   (13c) ``stream.rolling_*`` through kernel 2 on a (4096 + 1000, 256)
+   stream, the finalized sketch equal to the fresh sketch of the last
+   window bit for bit.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -168,6 +191,16 @@ PREFILL_SEQ = 32768
 RAGGED_SEQ = 4000
 ENGINE_KW = dict(slots=8, max_seq=2048, kv_sketch_rank=32, kv_compress_ratio=2.0)
 ENGINE_REQUESTS, PROMPT_LEN, MAX_NEW = 8, 128, 96
+# The f32 passes of phases 6 and 7 (the reference's tolerances) run the
+# first 8 of the 28 layers, to make room for phase 13; the bf16 passes, the
+# main path, keep all 28.
+F32_LAYERS = 8
+
+
+def first_layers(cfg, params: dict, n: int):
+    """``cfg`` and ``params`` cut to the first ``n`` layers of the stack."""
+    return (cfg.with_(n_layers=n),
+            {k: (w[:n] if k.startswith("layers/") else w) for k, w in params.items()})
 SERVE_TOL = 1e-1          # max |d logit| kernel vs plain engine (DESIGN §12)
 BF16_EXCESS = 16          # bf16 logits: ulps at the median |logit| (logits_agree)
 PEAK_F32_FLOP_PER_S = 67e12   # H100 SXM f32 outside the tensor cores
@@ -249,23 +282,43 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
     return [tuple(r) for r in rows]
 
 
-def device_ms(torch, fn, reps: int = REPS) -> float | None:
-    """Device time of one call of ``fn``: the summed time of every kernel it
-    launches (torch.profiler), averaged over ``reps`` calls after a warm-up;
-    None where the trace holds no device time.  Unlike ``median_ms`` it
-    excludes the host's launch overhead, which sets the CUDA-event time of
-    calls shorter than it."""
+def device_ms(torch, fn, reps: int = REPS) -> tuple[float | None, int, int]:
+    """Device time of one call of ``fn`` (torch.profiler), with the launches
+    behind it: (ms, launches the trace of ``reps`` calls holds, launches
+    ``reps`` calls make).  A call's launches of each kernel are counted on
+    one call traced alone; each kernel's mean device time a launch comes
+    from the ``reps`` calls traced after it, over the launches that trace
+    holds (late in a long run the profiler keeps only some short launches,
+    so dividing by ``reps`` would understate); ms sums count x mean over the
+    kernels.  None where a kernel of the call is missing from the trace.
+    Unlike ``median_ms`` it excludes the host's launch overhead, which sets
+    the CUDA-event time of calls shorter than it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+
+    def trace(n: int) -> dict:
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps if total > 0 else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {ev.key: (ev.count, ev.self_device_time_total)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and ev.count}
+    fn()
+    per_call, traced = trace(1), trace(reps)
+    held = sum(traced.get(k, (0, 0))[0] for k in per_call)
+    expected = reps * sum(c for c, _ in per_call.values())
+    if not per_call or any(traced.get(k, (0, 0))[1] <= 0 for k in per_call):
+        return None, held, expected
+    ms = sum(c * traced[k][1] / traced[k][0] for k, (c, _) in per_call.items())
+    return ms / 1e3, held, expected
+
+
+def fmt_dev(d: tuple) -> str:
+    """A ``device_ms`` result as "ms (held/expected launches)"."""
+    return f"{fmt_ms(d[0])} ({d[1]}/{d[2]} launches traced)"
 
 
 def kernel_ms(torch, fn, match: str, reps: int = REPS) -> tuple[float | None, int]:
@@ -465,6 +518,33 @@ def phase5_kernels(torch, gen, cfg) -> dict:
             check(torch.equal(again, got), "factored_decode: two calls differ")
             print("[kernels] factored_decode bf16: write_pos as an int32 on the "
                   "card == the int path, and two calls, bit for bit")
+    # gemma2-2b's global layers in phase 13b's engine: 8 slots x 8192 rows,
+    # 4 kv heads of 256 (G = 2), r = 32, the attention softcap 50; early in
+    # the slot (garbage past write_pos) and at the full slot
+    from repro_torch.models import registry as R
+    g2 = R.get_arch("gemma2-2b")
+    gb, gs = SCHED_CELLS["13b"]["model"]["slots"], SCHED_CELLS["13b"]["model"]["max_seq"]
+    gh, gkv, ghd, gcap = g2.n_heads, g2.n_kv_heads, g2.head_dim, g2.attn_softcap
+    plan = k4.decode_plan(gb, gkv, gs, ghd, r, gh // gkv)
+    print(f"[kernels] factored_decode plan at gemma2's ({gb}, {gs}, {gkv}, {ghd}) G "
+          f"{gh // gkv} r={r}: {plan.splits} splits on a {plan.grain}-row grain, "
+          f"{plan.smem} B shared memory a block, workspace {plan.workspace * 4} B")
+    for label, cwp, ccomp in (
+            ("gemma2 early bf16", 4700, (0, 4701, 4608, 1024, 0, 64, 4672, 1)),
+            ("gemma2 full bf16", gs - 1, (8128, 0, 4096, 8128, 64, 8064, 8192, 1))):
+        args = fdec_inputs(torch, gen, b=gb, s=gs, h=gh, kvh=gkv, hd=ghd, r=r,
+                           comp=ccomp, wp=cwp, dtype=torch.bfloat16)
+        got = k4.factored_decode_attention(*args, cwp, scale=ghd ** -0.5, cap=gcap)
+        want = k4.factored_decode_plain(*args, cwp, scale=ghd ** -0.5, cap=gcap)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[kernels] factored_decode {label} ({gb}, {gs}, {gkv}, {ghd}) G "
+              f"{gh // gkv} r={r} cap {gcap} write_pos={cwp} comp_len={list(ccomp)}: "
+              f"max|kernel-plain| {err:.3e} (tol 1e-2)")
+        check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+              f"factored_decode {label} disagrees with plain")
+        errs[("fdec", label)] = err
+        del args, got, want
     # comp_len == 0 everywhere: NaN factors must change no bit
     args = list(fdec_inputs(torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r,
                             comp=(0,) * b, wp=wp, dtype=torch.bfloat16))
@@ -535,8 +615,10 @@ def phase6_prefill(torch, gen, cfg, weights, card) -> dict:
     out = {}
     for act in ("bfloat16", "float32"):
         pcfg = cfg.with_(activation_dtype=act)
-        kcfg = pcfg.with_(use_flash_kernel=True)
         params = weights[act]
+        if act == "float32":
+            pcfg, params = first_layers(pcfg, params, F32_LAYERS)
+        kcfg = pcfg.with_(use_flash_kernel=True)
         torch.cuda.reset_peak_memory_stats()
         k3.launches = 0
         torch.cuda.synchronize()
@@ -552,12 +634,13 @@ def phase6_prefill(torch, gen, cfg, weights, card) -> dict:
         t_p = time.perf_counter() - t0
         del cache_p
         ok, msg = logits_agree(torch, logits_k, logits_p, act, 5e-2)
-        print(f"[prefill] {ARCH} full width, {act} activations, (1, {PREFILL_SEQ}) "
-              f"tokens: kernel path {t_k * 1e3:.1f} ms ({PREFILL_SEQ / t_k:.0f} "
+        print(f"[prefill] {ARCH} full width, {pcfg.n_layers} layers, {act} "
+              f"activations, (1, {PREFILL_SEQ}) tokens: kernel path {t_k * 1e3:.1f} ms ({PREFILL_SEQ / t_k:.0f} "
               f"tok/s, first call), plain attention {t_p * 1e3:.1f} ms; flash "
               f"launches {launches}; peak {peak:.2f} GiB; last-position logits "
               f"kernel vs plain: {msg} [{card}]")
-        check(launches == cfg.n_layers, f"flash launches {launches} != {cfg.n_layers}")
+        check(launches == pcfg.n_layers,
+              f"flash launches {launches} != {pcfg.n_layers}")
         check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
         check(ok, f"prefill logits ({act}): kernel path disagrees with the plain path")
         grown = cache_mod.grow_cache(cache, 1)
@@ -593,8 +676,11 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
     out = {}
     for act in ("bfloat16", "float32"):
         pcfg = cfg.with_(activation_dtype=act)
-        plain = Engine(pcfg, weights[act], device=dev, **ENGINE_KW)
-        kern = Engine(pcfg.with_(use_flash_kernel=True), weights[act], device=dev,
+        params = weights[act]
+        if act == "float32":
+            pcfg, params = first_layers(pcfg, params, F32_LAYERS)
+        plain = Engine(pcfg, params, device=dev, **ENGINE_KW)
+        kern = Engine(pcfg.with_(use_flash_kernel=True), params, device=dev,
                       **ENGINE_KW)
         compare = None if act == "float32" else (
             lambda got, want: bf16_agreement(torch, got, want))
@@ -619,35 +705,22 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
             rule = (f"worst excess over 2 own ulps {excess:.2f} ulp at the "
                     f"median |logit| <= {BF16_EXCESS}, least correlation of a "
                     f"step {corr:.7f} > 0.9999")
-        print(f"[engine] {act} lockstep, {res['steps']} decode steps in {wall:.1f} s: "
+        print(f"[engine] {act} lockstep ({pcfg.n_layers} layers), {res['steps']} "
+              f"decode steps in {wall:.1f} s: "
               f"max |d logit| kernel vs plain {max(diffs):.3e} ({rule}; "
               f"|logit| max {max(peaks):.1f}; mean of step maxima "
               f"{sum(diffs) / len(diffs):.3e}); fdec launches {launches} = "
-              f"{res['steps']} x {cfg.n_layers}: "
-              f"{launches == res['steps'] * cfg.n_layers}; swaps per slot {swaps}; "
+              f"{res['steps']} x {pcfg.n_layers}: "
+              f"{launches == res['steps'] * pcfg.n_layers}; swaps per slot {swaps}; "
               f"final comp_len {hist_k[-1]} [{card}]")
-        check(launches == res["steps"] * cfg.n_layers,
-              f"fdec launches {launches} != {res['steps']} x {cfg.n_layers}")
+        check(launches == res["steps"] * pcfg.n_layers,
+              f"fdec launches {launches} != {res['steps']} x {pcfg.n_layers}")
         check(hist_p == hist_k, "comp_len histories differ between the engines")
         check(min(swaps) >= 2, f"a slot compressed fewer than twice: {swaps}")
         check(ok, f"engines diverge ({act}): {rule}")
         out[act] = {"launches": launches, "max_diff": max(diffs), "engine": kern}
         del plain
-
-    # One swap traced, on the f32 lockstep's kernel engine (its cache is
-    # bf16 and its factors f32, as in bf16; the bf16 engine's final state
-    # stays as it is for phase 8): slots 0 and 1 still hold a 31-row tail.
-    eng = out["float32"]["engine"]
-    slots = iter(range(eng.slots))
-    wall_c, busy_c, top_c = device_breakdown(
-        torch, lambda: eng.compress_slot(next(slots)))
-    heads = cfg.n_scan_periods * cfg.n_kv_heads
-    print(f"[profile] one compress_slot (k and v, {heads} heads each: Q of a "
-          f"({ENGINE_KW['max_seq']}, {eng._kv_min_rows}) sketch, B = Q^T K, SVD, "
-          f"rank {ENGINE_KW['kv_sketch_rank']}): wall {wall_c:.3f} ms (traced), "
-          f"device kernels {busy_c:.3f} ms (busy {100 * busy_c / wall_c:.0f}%); "
-          f"top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c[:5]) + f" [{card}]")
-    del eng, out["float32"]["engine"]
+    del out["float32"]["engine"]
 
     traced = []
 
@@ -661,6 +734,18 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
     eng, step_ms, seconds = run["engine"], run["step_ms"], run["seconds"]
     tokens = run["tokens"]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # One swap traced, on the drained engine (the bf16 lockstep's kernel
+    # engine stays as it is for phase 8): slots 0 and 1 still hold a 31-row
+    # tail.
+    slots = iter(range(eng.slots))
+    wall_c, busy_c, top_c = device_breakdown(
+        torch, lambda: eng.compress_slot(next(slots)))
+    heads = cfg.n_scan_periods * cfg.n_kv_heads
+    print(f"[profile] one compress_slot (k and v, {heads} heads each: Q of a "
+          f"({ENGINE_KW['max_seq']}, {eng._kv_min_rows}) sketch, B = Q^T K, SVD, "
+          f"rank {ENGINE_KW['kv_sketch_rank']}): wall {wall_c:.3f} ms (traced), "
+          f"device kernels {busy_c:.3f} ms (busy {100 * busy_c / wall_c:.0f}%); "
+          f"top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c[:5]) + f" [{card}]")
     decode_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     slow = [(i, round(t)) for i, t in enumerate(step_ms) if i and t > 3 * decode_ms]
     wall_t, busy, top = traced
@@ -1079,10 +1164,10 @@ def phase9_streamed(torch, dev, card) -> dict:
     check(names and not gemms and (k1.launches, k2.launches) == before,
           f"srht_sketch launched a GEMM: {gemms}")
     t_srht = median_ms(torch, lambda: sx.srht_sketch(key, a, p))
-    d_srht = device_ms(torch, lambda: sx.srht_sketch(key, a, p))
+    d_srht = device_ms(torch, lambda: sx.srht_sketch(key, a, p))[0]
     t_fwht = median_ms(torch, lambda: sx.fwht(a))
     t_k2 = median_ms(torch, lambda: ops.shgemm_fused(a, key, p))
-    d_k2 = device_ms(torch, lambda: ops.shgemm_fused(a, key, p))
+    d_k2 = device_ms(torch, lambda: ops.shgemm_fused(a, key, p))[0]
     srht = {"rel_err": rel, "ms": t_srht, "device_ms": d_srht, "fwht_ms": t_fwht,
             "kernel2_ms": t_k2, "kernel2_device_ms": d_k2, "kernels": names}
     print(f"[stream] srht_sketch {tuple(a.shape)} p={p}: rel. error vs A @ "
@@ -2457,6 +2542,385 @@ def phase12_training(torch, dev, card) -> dict:
     return out
 
 
+# Phase 13: open-loop serving through the continuous-batching scheduler.
+# 13a qwen3-0.6b and 13b gemma2-2b at full width and depth (random bf16
+# weights from a seed), each trace run through the kernel path and the plain
+# path; 13a once more under an hbm_budget that admits 4 streams; 13c a
+# rolling sketch through kernel 2.
+SCHED_CELLS = {
+    "13a": {"arch": "qwen3-0.6b", "prefill_chunk": 256, "max_queue": 64,
+            "model": dict(slots=8, max_seq=2048, kv_sketch_rank=32,
+                          kv_compress_ratio=2.0),
+            "trace": dict(seed=0, n_requests=16, arrival_rate=200.0,
+                          prompt_short=(64, 256), prompt_long=(512, 1536),
+                          long_frac=0.25, max_new_range=(32, 128))},
+    "13b": {"arch": "gemma2-2b", "prefill_chunk": 512, "max_queue": 64,
+            "model": dict(slots=8, max_seq=8192, kv_sketch_rank=32,
+                          kv_compress_ratio=2.0),
+            "trace": dict(seed=1, n_requests=8, arrival_rate=200.0,
+                          prompt_short=(256, 1024), prompt_long=(4200, 4800),
+                          long_frac=0.5, max_new_range=(64, 160))},
+}
+BUDGET_STREAMS = 4         # 13a's capped run ...
+BUDGET_REQUESTS = 8        # ... on the trace's first 8 requests (cut from 16)
+REPLAY_STEPS = 72          # decode steps of the lockstep replay (> one swap)
+ROLL_ROWS, ROLL_COLS, ROLL_WINDOW, ROLL_P = 4096 + 1000, 256, 4096, 40
+ROLL_TILES = (512, 1, 777, 1000, 256, 1500)   # ragged, then the rest
+
+
+def cell_trace(spec: dict, vocab: int) -> list:
+    """The cell's seeded Poisson trace (``loadgen.generate_trace``)."""
+    from repro_torch.serve import loadgen
+    t = dict(spec["trace"])
+    return loadgen.generate_trace(t.pop("seed"), t.pop("n_requests"),
+                                  t.pop("arrival_rate"), vocab=vocab, **t)
+
+
+def replay_lockstep(torch, dev, cfg, weights, req, spec, steps: int) -> dict:
+    """One request replayed through two one-slot model steps, the plain path
+    and the kernel path, in lockstep as the scheduler drives a lone request:
+    chunked prefill, the swap check at promotion, then masked decode steps at
+    the slot's own clock, each followed by the swap check.  The plain path's
+    greedy token is fed to both (teacher forcing).  Returns the per-call
+    logits agreement (``bf16_agreement``) and both comp_len histories."""
+    from repro_torch.serve.model_step import ModelStep
+    kw = dict(spec["model"], slots=1)
+    models = [ModelStep(c, weights, device=dev, **kw)
+              for c in (cfg, cfg.with_(use_flash_kernel=True))]
+    agree, comp = [], [[], []]
+    chunk, prompt = spec["prefill_chunk"], req.prompt
+    for m in models:
+        m.begin_slot(0)
+    for start in range(0, len(prompt), chunk):
+        outs = [m.prefill_rows(0, prompt[start:start + chunk], start) for m in models]
+    agree.append(bf16_agreement(torch, outs[1][None], outs[0][None]))
+    token = int(torch.argmax(outs[0]))
+    mask = [True]
+    for i in range(steps + 1):
+        for k, m in enumerate(models):
+            if i:
+                clock = int(m.pos[0])
+                outs[k] = m.decode_logits([[token]], clock, slot_mask=mask)
+                m._note_kv_row(0, clock)
+                m.pos[0] = clock + 1
+            m.auto_compress(0)
+            comp[k].append(int(m._kv_comp_len[0]))
+        if i:
+            agree.append(bf16_agreement(torch, outs[1], outs[0]))
+            token = int(torch.argmax(outs[0][0]))
+    return {"corr": min(c for c, _ in agree), "excess": max(e for _, e in agree),
+            "calls": len(agree), "comp_len": comp, "pos": int(models[0].pos[0])}
+
+
+def phase13_cell(torch, dev, card, name: str, spec: dict, *,
+                 budget: bool = False):
+    """One scheduler cell: the trace through the kernel path (timed, one
+    decode step traced, launches and peak memory) and through the plain path
+    (the SLO summaries must be equal), then the lockstep replay of the
+    longest request.  Returns the kernel run's record and its scheduler."""
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.scheduler import Scheduler
+    t_cell = time.perf_counter()
+    cfg = R.get_arch(spec["arch"])
+    weights = T.cast_params_for_compute(
+        cfg, launch.init_weights(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    trace = cell_trace(spec, cfg.vocab)
+    kw = dict(spec["model"], prefill_chunk=spec["prefill_chunk"],
+              max_queue=spec["max_queue"], device=dev)
+    traced, pos_max, comp_seen = [], [0], [0]
+
+    def watch(sch, i):
+        m = sch.model
+        pos_max[0] = max(pos_max[0], int(m.pos.max()))
+        comp_seen[0] = max(comp_seen[0], int(m._kv_comp_len.max()))
+        live = sch._live()
+        offered = len(sch.metrics.records) + len(sch.metrics.rejected)
+        if (not traced and offered == len(trace) and not sch.queue
+                and len(live) >= 2
+                and all(sch.active[s].phase == "decode" for s in live)):
+            # two steps of pure batched decode (device_breakdown warms up on
+            # the first), run outside the step timer; with every request
+            # already offered, no arrival is due between them, so the
+            # schedule is the plain run's
+            traced.append(f"{len(live)} slots decoding, in the run")
+            traced.extend(device_breakdown(torch, lambda: Scheduler.step(sch)))
+    runs = {}
+    for path, c in (("kernel", cfg.with_(use_flash_kernel=True)), ("plain", cfg)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k4.launches = 0
+        res = launch.run_scheduler(c, weights, trace,
+                                   on_step=watch if path == "kernel" else None, **kw)
+        res["launches"] = k4.launches
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[path] = res
+        if path == "plain":
+            del res["scheduler"]
+    kern, plain = runs["kernel"], runs["plain"]
+    sch, summ = kern["scheduler"], kern["summary"]
+    acct = summ["accounting"]
+    check(acct["unaccounted"] == 0 and acct["in_flight"] == 0
+          and acct["completed"] + acct["rejected"] == len(trace),
+          f"{name}: requests not accounted: {acct}")
+    check(summ == plain["summary"], f"{name}: the kernel path's SLO summary "
+          f"differs from the plain path's: {summ} vs {plain['summary']}")
+    check(kern["launches"] > 0 and plain["launches"] == 0,
+          f"{name}: kernel 4 launches {kern['launches']} (plain path "
+          f"{plain['launches']})")
+    kinds = list(zip(kern["step_ms"], kern["step_kinds"]))
+    decode = [t for t, (p, d) in kinds if d and not p]
+    what = "decode-only"
+    if not decode:                  # every decode step also caught a slot up
+        decode, what = [t for t, (p, d) in kinds if d], "decode (with catch-up)"
+    prefill = [t for t, (p, d) in kinds if p]
+    check(bool(decode) and bool(prefill), f"{name}: no decode or prefill step")
+    dec_ms = sorted(decode)[len(decode) // 2]
+    if not traced:
+        # no pure-decode step came after the last arrival: trace a batched
+        # decode of every slot on the drained model (tokens 0, at the clock
+        # past the largest pos), as the scheduler's decode step runs it
+        m = sch.model
+        clock = min(int(m.pos.max()), m.max_seq - 1)
+        traced.append(f"all {m.slots} slots, after the drain")
+        traced.extend(device_breakdown(torch, lambda: m.sample(m.decode_logits(
+            [[0]] * m.slots, clock, slot_mask=[True] * m.slots))))
+    n_live, wall_t, busy, top = traced
+    fdec = sum(v for k, v in top if "fdec" in k)
+    print(f"[sched] {name} {cfg.name} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}), {spec['model']['slots']} slots x "
+          f"{spec['model']['max_seq']} rows, rank {spec['model']['kv_sketch_rank']} "
+          f"swapping every {int(spec['model']['kv_compress_ratio'] * spec['model']['kv_sketch_rank'])} "
+          f"rows, prefill_chunk {spec['prefill_chunk']}; trace {spec['trace']}: "
+          f"{kern['tokens']} tokens in {kern['seconds']:.2f} s wall "
+          f"({kern['tokens_per_s']:.1f} tok/s; plain path {plain['seconds']:.2f} s, "
+          f"{plain['tokens_per_s']:.1f} tok/s); {kern['steps']} scheduler steps, "
+          f"median {what} step {dec_ms:.2f} ms ({len(decode)} steps), "
+          f"median step with prefill work {sorted(prefill)[len(prefill) // 2]:.2f} ms "
+          f"({len(prefill)}); kernel 4 launches {kern['launches']}; peak memory "
+          f"{kern['peak_gib']:.2f} GiB (plain {plain['peak_gib']:.2f}); largest pos "
+          f"{pos_max[0]}, largest comp_len {comp_seen[0]}; accounting {acct}; "
+          f"SLO summary equal to the plain path's [{card}]")
+    print(f"[sched] {name} virtual clock: TTFT p50 / p99 {summ['ttft_p50_s']:.4f} / "
+          f"{summ['ttft_p99_s']:.4f} s, TPOT p50 / p99 {summ['tpot_p50_s']:.5f} / "
+          f"{summ['tpot_p99_s']:.5f} s, latency p50 / p99 {summ['latency_p50_s']:.4f} / "
+          f"{summ['latency_p99_s']:.4f} s, {summ['tokens_per_s']:.1f} tok/s, "
+          f"concurrency max {summ['concurrency_max']}, HBM {summ['hbm']}")
+    print(f"[profile] {name} one decode step ({n_live}): wall {wall_t:.3f} ms (traced), device kernels "
+          f"{busy:.3f} ms (busy {100 * busy / wall_t:.0f}%); kernel 4 (fdec) "
+          f"{fdec:.3f} ms; top: " + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:5])
+          + f" [{card}]")
+    rec = {"arch": cfg.name, "tokens": kern["tokens"], "seconds": kern["seconds"],
+           "tokens_per_s": kern["tokens_per_s"], "plain_seconds": plain["seconds"],
+           "steps": kern["steps"], "decode_step_ms": dec_ms,
+           "traced_step": {"wall_ms": wall_t, "device_ms": busy, "fdec_ms": fdec},
+           "launches": kern["launches"], "peak_gib": kern["peak_gib"],
+           "pos_max": pos_max[0], "comp_len_max": comp_seen[0], "summary": summ}
+    del runs, plain
+
+    longest = max(trace, key=lambda r: len(r.prompt))
+    t0 = time.perf_counter()
+    rep = replay_lockstep(torch, dev, cfg, weights, longest, spec, REPLAY_STEPS)
+    same = rep["comp_len"][0] == rep["comp_len"][1]
+    ok = rep["excess"] <= BF16_EXCESS and rep["corr"] > 0.9999 and same
+    print(f"[sched] {name} lockstep replay of request {longest.rid} ({len(longest.prompt)}"
+          f"-token prompt, {REPLAY_STEPS} decode steps, to pos {rep['pos']}), kernel "
+          f"path vs plain path, {rep['calls']} logits compared: worst excess over 2 "
+          f"own ulps {rep['excess']:.2f} ulp at the median |logit| <= {BF16_EXCESS}, "
+          f"least correlation {rep['corr']:.7f} > 0.9999; comp_len histories equal: "
+          f"{same} (final {rep['comp_len'][1][-1]}); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    check(ok, f"{name}: the replayed request's kernel path disagrees: {rep}")
+    rec["replay"] = {k: rep[k] for k in ("corr", "excess", "calls", "pos")}
+
+    if budget:
+        t0 = time.perf_counter()
+        bound = Scheduler(sch.model, prefill_chunk=spec["prefill_chunk"]).stream_bound
+        cap_kw = dict(kw, hbm_budget=BUDGET_STREAMS * bound)
+        del sch, kern
+        torch.cuda.empty_cache()
+        k4.launches = 0
+        res = launch.run_scheduler(cfg.with_(use_flash_kernel=True), weights,
+                                   trace[:BUDGET_REQUESTS], **cap_kw)
+        s_cap, s_b = res["scheduler"], res["summary"]
+        check(s_cap.max_streams == BUDGET_STREAMS
+              and s_b["concurrency_max"] == BUDGET_STREAMS
+              and s_b["accounting"]["unaccounted"] == 0
+              and s_b["accounting"]["in_flight"] == 0
+              and s_b["accounting"]["completed"] == BUDGET_REQUESTS,
+              f"{name} under hbm_budget: cap {s_cap.max_streams}, {s_b}")
+        print(f"[sched] {name} hbm_budget {cap_kw['hbm_budget']} B = {BUDGET_STREAMS} x "
+              f"the stream bound {bound} B, the trace's first {BUDGET_REQUESTS} "
+              f"requests: admission cap {s_cap.max_streams} streams, concurrency "
+              f"max {s_b['concurrency_max']} (mean {s_b['concurrency_mean']:.2f}), "
+              f"queue depth max {s_b['queue_depth_max']}; {res['tokens']} tokens in "
+              f"{res['seconds']:.2f} s wall; virtual TTFT p50 / p99 "
+              f"{s_b['ttft_p50_s']:.4f} / {s_b['ttft_p99_s']:.4f} s, latency p99 "
+              f"{s_b['latency_p99_s']:.4f} s; kernel 4 launches {k4.launches}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        rec["budget"] = {"hbm_budget": cap_kw["hbm_budget"], "stream_bound": bound,
+                         "max_streams": s_cap.max_streams,
+                         "launches": k4.launches, "seconds": res["seconds"],
+                         "summary": s_b}
+        sch = s_cap
+    rec["seconds_cell"] = time.perf_counter() - t_cell
+    return rec, sch
+
+
+def fdec_state_times(torch, dev, label, args, wp, hd, cap, card) -> dict:
+    """Kernel 4 on one state: CUDA events around a call, a launch replayed
+    from a CUDA graph, the profiler's device time with the launches its
+    trace holds, the plain version, and the bytes bound."""
+    from repro_torch.kernels import factored_decode as k4
+    clock = torch.tensor([wp], dtype=torch.int32, device=dev)
+
+    def call():
+        return k4.factored_decode_attention(*args, clock, scale=hd ** -0.5, cap=cap)
+    t_k = median_ms(torch, lambda: k4.factored_decode_attention(
+        *args, wp, scale=hd ** -0.5, cap=cap), reps=TIMING_REPS)
+    for _ in range(3):          # late in the run a trace may hold none
+        t_d, seen = kernel_ms(torch, call, "fdec_kernel", TIMING_REPS)
+        if seen:
+            break
+    t_g = graph_ms(torch, call)
+    t_p = median_ms(torch, lambda: k4.factored_decode_plain(
+        *args, wp, scale=hd ** -0.5, cap=cap), reps=TIMING_REPS)
+    nbytes = k4.bytes_needed(args[0], args[1], args[3], args[7], wp)
+    nops = k4.operations_needed(args[0], args[1], args[3], args[7], wp)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_FLOP_PER_S * 1e3
+    bound, by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    b, s, kvh, _ = args[1].shape
+    print(f"[time] factored_decode {label} ({b}, {s}, {kvh}, {hd}) G "
+          f"{args[0].shape[2] // kvh} r={args[3].shape[-1]} cap {cap} write_pos={wp} "
+          f"comp_len={[int(c) for c in args[7].tolist()]}: kernel {t_k:.4f} ms by "
+          f"CUDA events, {t_g:.4f} ms a launch in a CUDA graph, device {fmt_ms(t_d)} "
+          f"ms ({seen} of {TIMING_REPS} launches in the trace); plain {t_p:.4f} ms; "
+          f"bound {bound:.5f} ms ({by}: {nbytes} B, {nops} f32 ops); graph/bound "
+          f"{t_g / bound:.1f}x [{card}]")
+    return {"state": label, "write_pos": wp, "ms": t_k, "device_ms": t_d,
+            "device_launches_traced": seen, "graph_ms": t_g, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+
+
+def phase13_rolling(torch, dev, card) -> dict:
+    """13c: ``stream.rolling_*`` with kernel 2 (its default method) over a
+    (4096 + 1000)-row stream of 256-column rows in ragged tiles: the
+    finalized sketch equals kernel 2's fresh sketch of the last window bit
+    for bit (the reference's test_rolling.py tolerance for this method)."""
+    from repro_torch import stream
+    from repro_torch.convert import key_from_seed
+    from repro_torch.kernels import shgemm_fused as k2
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a = torch.randn((ROLL_ROWS, ROLL_COLS), generator=gen, device=dev)
+    key = key_from_seed(13)
+    k2.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = stream.rolling_init(key, ROLL_COLS, ROLL_P, window=ROLL_WINDOW,
+                             device=dev)
+    pos = 0
+    for c in ROLL_TILES + (ROLL_ROWS,):
+        c = min(c, ROLL_ROWS - pos, ROLL_WINDOW)
+        rs = stream.rolling_update(rs, a[pos:pos + c], pos)
+        pos += c
+        if pos == ROLL_ROWS:
+            break
+    fin = stream.rolling_finalize(rs)
+    torch.cuda.synchronize()
+    t_roll = (time.perf_counter() - t0) * 1e3
+    launches = k2.launches
+    fresh = stream.update(stream.init(key, ROLL_COLS, ROLL_P, max_rows=ROLL_WINDOW,
+                                      method="shgemm_fused", device=dev),
+                          a[ROLL_ROWS - ROLL_WINDOW:], 0)
+    same = torch.equal(fin.y, fresh.y)
+    print(f"[sched] 13c rolling sketch through kernel 2: a ({ROLL_ROWS}, {ROLL_COLS}) "
+          f"stream in tiles of {list(ROLL_TILES)} then the rest, window {ROLL_WINDOW}, "
+          f"p {ROLL_P}: finalize == the fresh sketch of the last window bit for bit: "
+          f"{same}; {launches} kernel 2 launches; {t_roll:.2f} ms from init to "
+          f"finalize [{card}]")
+    check(same, "13c: the rolling sketch's finalize != the fresh window sketch")
+    check(launches > 0, "13c: kernel 2 never launched")
+    return {"launches": launches, "ms": t_roll}
+
+
+def phase13_scheduler(torch, dev, card) -> dict:
+    """Phase 13: 13a qwen3-0.6b and 13b gemma2-2b through the scheduler at
+    full width and depth, 13a again under an hbm_budget of 4 streams, one
+    traced compress_slot of gemma2, kernel 4 at gemma2's engine shapes, and
+    13c the rolling sketch through kernel 2."""
+    with torch.inference_mode():       # serving: no autograd bookkeeping
+        return _phase13(torch, dev, card)
+
+
+def _phase13(torch, dev, card) -> dict:
+    t_phase = time.perf_counter()
+    out = {}
+    out["13a"], sch = phase13_cell(torch, dev, card, "13a", SCHED_CELLS["13a"],
+                                   budget=True)
+    del sch
+    torch.cuda.empty_cache()
+    out["13b"], sch = phase13_cell(torch, dev, card, "13b", SCHED_CELLS["13b"])
+    ring = max(spec.window for spec in sch.model.cfg.pattern if spec.window)
+    check(out["13b"]["pos_max"] > ring,
+          f"13b: no slot passed the {ring}-row ring ({out['13b']['pos_max']})")
+    check(out["13b"]["comp_len_max"] > 0, "13b: no swap fired")
+    model = sch.model
+    # device_breakdown calls twice (a warm-up, then the traced call): two
+    # drained slots with a dense tail left, the longer tail traced
+    tails = sorted((s for s in range(model.slots)
+                    if model.pos[s] > model._kv_comp_len[s]
+                    and model.pos[s] >= model._kv_min_rows),
+                   key=lambda s: int(model.pos[s] - model._kv_comp_len[s]))
+    check(len(tails) >= 2, f"13b: fewer than two slots left to swap: {tails}")
+    order = iter(tails[-2:])
+    slot = tails[-1]
+    wall_c, busy_c, top_c = device_breakdown(
+        torch, lambda: model.compress_slot(next(order)))
+    n_global = sum(1 for spec in model.cfg.layer_specs() if spec.window is None)
+    print(f"[profile] one compress_slot of gemma2-2b (slot {slot} at pos "
+          f"{int(model.pos[slot])}; k and v of {n_global} global layers x "
+          f"{model.cfg.n_kv_heads} heads, ({model.max_seq}, {model._kv_min_rows}) "
+          f"sketches; the local layers' rolling sketches are not swapped): wall {wall_c:.3f} ms (traced), device kernels {busy_c:.3f} "
+          f"ms (busy {100 * busy_c / wall_c:.0f}%); top: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top_c[:5]) + f" [{card}]")
+    out["13b"]["traced_swap"] = {"wall_ms": wall_c, "device_ms": busy_c}
+
+    # kernel 4 at gemma2's engine shapes: the 13b state of the first global
+    # layer, and a full slot of dense rows
+    cfg = sch.model.cfg
+    h, kvh, hd, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_softcap
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    layer = next(i for i, spec in enumerate(cfg.pattern) if spec.window is None)
+    kc, vc = model.cache["scan"][layer]["k"][0], model.cache["scan"][layer]["v"][0]
+    f = {n: w[0] for n, w in model.kv_fact["scan"][layer].items()}
+    comp = torch.as_tensor(model._kv_comp_len, device=dev)
+    q = torch.randn((model.slots, 1, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    s, r, b = kc.shape[1], f["k_us"].shape[-1], model.slots
+    per_state = [fdec_state_times(
+        torch, dev, "gemma2 13b state", (q, kc, vc, f["k_us"], f["k_vt"], f["v_us"],
+                                    f["v_vt"], comp), int(model.pos.max()) - 1,
+        hd, cap, card)]
+    del sch, model, kc, vc, f
+    torch.cuda.empty_cache()
+    per_state.append(fdec_state_times(
+        torch, dev, "gemma2 full slot, dense", fdec_inputs(
+            torch, gen, b=b, s=s, h=h, kvh=kvh, hd=hd, r=r, comp=(0,) * b,
+            wp=s - 1, dtype=torch.bfloat16), s - 1, hd, cap, card))
+    out["fdec_per_state"] = per_state
+    out["13c"] = phase13_rolling(torch, dev, card)
+    out["scheduler_launches"] = {"13a": out["13a"]["launches"],
+                                 "13a_budget": out["13a"]["budget"]["launches"],
+                                 "13b": out["13b"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[sched] phase 13 took {out['seconds']:.1f} s (13a {out['13a']['seconds_cell']:.1f} "
+          f"s, 13b {out['13b']['seconds_cell']:.1f} s); kernel 4 launches "
+          f"{out['scheduler_launches']} (counts set to 0 before each run)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2649,13 +3113,13 @@ def run(torch) -> int:
                       f"{label} {sname} not bit-identical at {(bm, bn, splits)}")
                 times[(bm, bn, splits)] = (median_ms(torch, call),
                                            device_ms(torch, call))
-            best = min(times, key=lambda p: times[p][1] or times[p][0])
+            best = min(times, key=lambda p: times[p][1][0] or times[p][0])
             print(f"[plans] {label} {sname} {(m, k, n)} "
                   f"{'bf16 B' if label == 'kernel 1' else 'gaussian bf16'}, "
                   f"(bm, bn, splits) at bk {plan[2]}, all bit-identical to the "
                   f"planner's {plan}; CUDA-event ms / device ms (kernel + "
-                  f"reduction): "
-                  + "; ".join(f"{p} {t:.4f} / {fmt_ms(d)}" for p, (t, d) in times.items())
+                  f"reduction; launches the trace held / made): "
+                  + "; ".join(f"{p} {t:.4f} / {fmt_dev(d)}" for p, (t, d) in times.items())
                   + f"; least device time {best} [{card}]")
 
     # Kernel 1's planner counts SHGEMM_PER_SM blocks of 128 x 32 an SM:
@@ -2757,21 +3221,22 @@ def run(torch) -> int:
                 plain = (lambda: k2.shgemm_fused_plain(a, key, n))
                 lib = (lambda: torch.matmul(a, omega32))
                 what = "bf16 gaussian"
-            t_k, t_d = median_ms(torch, kern), device_ms(torch, kern)
-            t_pk, t_pd = t_k, t_d
+            t_k, d_k = median_ms(torch, kern), device_ms(torch, kern)
+            t_pk, d_pk = t_k, d_k
             if plan != planned:
                 plan_kern = kernel_at(planned)[0]
-                t_pk, t_pd = median_ms(torch, plan_kern), device_ms(torch, plan_kern)
+                t_pk, d_pk = median_ms(torch, plan_kern), device_ms(torch, plan_kern)
             t_p = median_ms(torch, plain)
-            t_l, t_ld = median_ms(torch, lib), device_ms(torch, lib)
+            t_l, d_l = median_ms(torch, lib), device_ms(torch, lib)
+            t_d, t_pd, t_ld = d_k[0], d_pk[0], d_l[0]
             t_b, by = bound_ms(m, k, n, 2, omega_bytes)
             print(f"[time] {name} {sname} ({m}x{k} @ {k}x{n}, {what}, 2 terms, "
                   f"plan (bm, bn, bk, splits) {plan} as the path launches it "
                   f"(autotune.pick_blocks; the planner's {planned}: "
-                  f"{'the same' if plan == planned else f'{t_pk:.4f} ms, device {fmt_ms(t_pd)} ms'}"
+                  f"{'the same' if plan == planned else f'{t_pk:.4f} ms, device {fmt_dev(d_pk)} ms'}"
                   f"), grid {grid}, workspace {wbytes} B): kernel {t_k:.4f} ms "
-                  f"(device {fmt_ms(t_d)} ms), plain {t_p:.4f} ms, f32 matmul "
-                  f"{t_l:.4f} ms (device {fmt_ms(t_ld)} ms), bound {t_b:.4f} ms "
+                  f"(device {fmt_dev(d_k)} ms), plain {t_p:.4f} ms, f32 matmul "
+                  f"{t_l:.4f} ms (device {fmt_dev(d_l)} ms), bound {t_b:.4f} ms "
                   f"({by}); kernel/bound {t_k / t_b:.2f}x [{card}]")
             records[(name, sname)] = (t_k, t_p, t_l, t_b, by)
             err = (results.get(("shgemm", sname, bf16, 2)) if name == "shgemm"
@@ -2779,9 +3244,10 @@ def run(torch) -> int:
             per_shape[name].append({
                 "shape": [m, k, n], "plan": list(plan), "planned": list(planned),
                 "workspace_bytes": wbytes, "ms": t_k, "device_ms": t_d,
-                "planned_ms": t_pk, "planned_device_ms": t_pd,
-                "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
-                "library_ms": t_l, "library_device_ms": t_ld, "max_abs_err": err})
+                "device_launches": d_k[1:], "planned_ms": t_pk,
+                "planned_device_ms": t_pd, "plain_ms": t_p, "bound_ms": t_b,
+                "bound_by": by, "library_ms": t_l, "library_device_ms": t_ld,
+                "library_device_launches": d_l[1:], "max_abs_err": err})
         del omega32
 
     a_exp = main_path.rsvd_inputs(PAPER_RSVD, device=dev)["exp"]
@@ -2865,6 +3331,10 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     train12 = phase12_training(torch, dev, card)
 
+    # -- 13. open-loop serving through the scheduler ----------------------
+    torch.cuda.empty_cache()
+    sched13 = phase13_scheduler(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -2896,6 +3366,7 @@ def run(torch) -> int:
             {"what": key[1], **r} for key, r in train12["kernels"].items()
             if key[0] == rec["name"]]
     kernels[1]["training_launches"]["loop"] = train12["loop"]["clean"]["kernel2_launches"]
+    kernels[1]["rolling_launches"] = sched13["13c"]["launches"]
     kernels[0]["training_launches"]["world_ranks"] = [
         x["launches"] for x in train12["world"]["ranks"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]
@@ -2917,8 +3388,10 @@ def run(torch) -> int:
                     "plain_ms": fdec[0]["plain_ms"],
                     "bound_ms": fdec[0]["bound_ms"],
                     "bound_by": fdec[0]["bound_by"], "library_ms": None,
-                    "per_state": fdec, "autotuned": tune11["factored_decode"],
-                    "distributed_launches": 0})
+                    "per_state": fdec + sched13["fdec_per_state"],
+                    "autotuned": tune11["factored_decode"],
+                    "distributed_launches": 0,
+                    "scheduler_launches": sched13["scheduler_launches"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

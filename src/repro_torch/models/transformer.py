@@ -18,7 +18,8 @@ the reference returns an updated copy.
 
 Served and trained here: ``mixer="attn"`` with ``ffn="mlp"``, full-context
 or windowed prefill, full-context decode with or without the factored
-prefix, and the single-card training loss (``cross_entropy``, ``loss_fn``;
+prefix, windowed decode and chunked prefill over a ring-buffer cache, and
+the single-card training loss (``cross_entropy``, ``loss_fn``;
 autograd runs through the forward, which never writes a tensor autograd
 saved: the only in-place writes are those of a cache, and training passes
 none).
@@ -47,7 +48,6 @@ _NOT_PORTED = {
     "cross_attn": "enc-dec cross-attention (ROADMAP Queue 1 item 16f)",
     "encdec": "the enc-dec encoder (ROADMAP Queue 1 item 16f)",
     "vlm": "the VLM frontend (ROADMAP Queue 1 item 16f)",
-    "window_decode": "windowed (ring) decode (ROADMAP Queue 1 item 16b)",
     "vocab_parallel": "the vocab-parallel loss across processes (ROADMAP "
                       "Queue 1 item 16g)",
 }
@@ -251,11 +251,13 @@ def _attn_with_cache(cfg, spec, p, h, *, positions, rope, cache, write_pos,
                 kv = L.KVCache(k[:, -spec.window:], v[:, -spec.window:])
             else:
                 kv = L.KVCache(k, v)
+    elif spec.window is not None and cache.k.shape[1] <= spec.window:
+        out = _ring_attend(cfg, q, k, v, cache, positions, int(write_pos),
+                           scale=scale, causal=causal)
+        kv = cache
     else:
         s_kv = cache.k.shape[1]
         sq = q.shape[1]
-        if spec.window is not None and s_kv <= spec.window:
-            raise not_ported("window_decode")
         wp = int(write_pos)
         if not 0 <= wp <= s_kv - sq:
             raise ValueError(f"write_pos={wp} + {sq} rows overruns the cache "
@@ -287,6 +289,57 @@ def _attn_with_cache(cfg, spec, p, h, *, positions, rope, cache, write_pos,
     b, sq = out.shape[:2]
     out = out.reshape(b, sq, -1) @ p["attn/wo"].to(dt)
     return out, kv
+
+
+def _ring_attend(cfg, q, k, v, cache, positions, write_pos: int, *, scale,
+                 causal):
+    """Attention of a windowed layer over its ring-buffer cache of s_kv <=
+    window rows: ring slot i holds absolute position ``write_pos - ((wp - i)
+    mod s_kv)``, ``wp = write_pos mod s_kv`` (the reference's formula), so
+    every token attends exactly the s_kv positions ending at its own —
+    slots not written yet hold zeros at negative positions, as in the
+    reference.
+
+    One token (decode) writes its row at slot ``wp`` and attends the ring,
+    as the reference does.  A chunk of sq > 1 tokens at ``write_pos``
+    onwards cannot write first: its rows would overwrite ring slots that
+    its own earlier tokens still attend (token i needs the old rows of
+    positions after ``write_pos + i - s_kv``).  So it attends over the old
+    ring, rotated into position order, followed by the chunk's own rows
+    (rounded to the cache dtype as the reference's writes are), each token
+    masked to its trailing s_kv positions, and writes the ring afterwards:
+    the reference's token-by-token prefill, computed at once."""
+    dt = q.dtype
+    s_kv, sq = cache.k.shape[1], q.shape[1]
+    if write_pos < 0:
+        raise ValueError(f"write_pos={write_pos} must be >= 0")
+    dev = q.device
+    if sq == 1:
+        wp = write_pos % s_kv
+        cache.k[:, wp] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, wp] = v[:, 0].to(cache.v.dtype)
+        kv_pos = write_pos - torch.remainder(
+            wp - torch.arange(s_kv, device=dev), s_kv)
+        return L.attention(q, cache.k.to(dt), cache.v.to(dt), causal=causal,
+                           window=s_kv, scale=scale, cap=cfg.attn_softcap,
+                           q_positions=positions, kv_positions=kv_pos,
+                           chunk=cfg.attn_chunk)
+    old = torch.remainder(write_pos - s_kv + torch.arange(s_kv, device=dev),
+                          s_kv)
+    k_new, v_new = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    k_all = torch.cat([cache.k[:, old], k_new], dim=1).to(dt)
+    v_all = torch.cat([cache.v[:, old], v_new], dim=1).to(dt)
+    kv_pos = torch.arange(write_pos - s_kv, write_pos + sq, device=dev)
+    out = L.attention(q, k_all, v_all, causal=causal, window=s_kv,
+                      scale=scale, cap=cfg.attn_softcap,
+                      q_positions=positions, kv_positions=kv_pos,
+                      chunk=cfg.attn_chunk)
+    n = min(sq, s_kv)                   # rows older than a lap never land
+    slots = torch.remainder(
+        torch.arange(write_pos + sq - n, write_pos + sq, device=dev), s_kv)
+    cache.k[:, slots] = k_new[:, sq - n:]
+    cache.v[:, slots] = v_new[:, sq - n:]
+    return out
 
 
 # ---------------------------------------------------------------------------

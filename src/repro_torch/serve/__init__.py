@@ -1,3 +1,3 @@
-"""Serving: the slot-pool model step, incremental KV compression and the
-closed-loop engine (the scheduler, load generator and metrics are not
-ported yet)."""
+"""Serving: the slot-pool model step, incremental KV compression (linear and
+rolling), the closed-loop engine, and the continuous-batching scheduler with
+its load generator and SLO metrics."""

@@ -16,11 +16,16 @@ Differences from the reference, none of which changes the arithmetic:
     single-token steps over every slot and masks the other slots' writes
     out: the same arithmetic, summed in another order;
   * the weights are cast to the activation dtype once, at construction.
+Windowed (ring) cache leaves keep rolling sketches whose ring mirrors the
+cache ring (``kv_compress.kv_rolling_*``); only full-context k/v leaves swap
+to factors.
+
 Documented deviations: the per-(slot, leaf) sketch keys are derived on the
-counter lattice (``_slot_key``) in place of ``jax.random.fold_in``, and
-sampling at ``temperature > 0`` draws from a ``torch.Generator``.
-Windowed (ring) leaves cannot be sketched until rolling sketches are ported
-(ROADMAP Queue 1 item 16b).
+counter lattice in place of ``jax.random.fold_in`` (``_slot_key``: stream 7
+at columns (2j, 2j + 1); ``_kv_roll_key``, the rolling sketches': stream 7
+at columns ``_ROLL_COL_BASE`` + (2j, 2j + 1), a range the linear keys never
+reach), and sampling at ``temperature > 0`` draws from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import kv_compress
 
 # Counter-lattice stream of the per-(slot, leaf) sketch keys (0-1 draw
-# Omega, 6 the HOSVD mode keys).
+# Omega, 6 the HOSVD mode keys); the rolling sketches' keys sit at columns
+# from _ROLL_COL_BASE on (the reference folds in 0x7011 for them).
 _SKETCH_KEY_STREAM = 7
+_ROLL_COL_BASE = 0x7011 << 16
 
 
 class ModelStep:
@@ -69,9 +76,8 @@ class ModelStep:
         self.kv_sketch_rank = kv_sketch_rank
         self._kv_key = key_from_seed(kv_sketch_seed)
         linear_paths, ring_paths = self._find_kv_paths()
-        if kv_sketch_rank and ring_paths:
-            raise T.not_ported("window_decode")
-        self._kv_paths = linear_paths if kv_sketch_rank else []
+        self._kv_paths, self._kv_roll_paths = (
+            (linear_paths, ring_paths) if kv_sketch_rank else ([], []))
         # windowed ring leaves, tracked even without sketching: begin_slot
         # must zero them for a new tenant
         self._ring_paths = ring_paths
@@ -144,15 +150,34 @@ class ModelStep:
             rows = leaf[..., start:start + length, :][..., None, :, :]
         return rows.reshape((-1,) + tuple(rows.shape[-2:]))
 
-    def _slot_key(self, slot: int, j: int) -> tuple[int, int]:
+    def _kv_leaf_rows_ring(self, path, slot: int, start: int, length: int):
+        """(heads_batch, length, d) copy of a windowed leaf's rows for
+        absolute positions [start, start+length): the cache ring holds
+        position ``a`` in slot ``a % window`` (``transformer._ring_attend``)."""
+        leaf = self._slot_leaf(path, slot)
+        window = leaf.shape[-3]
+        idx = torch.remainder(torch.arange(start, start + length,
+                                           device=leaf.device), window)
+        rows = leaf[..., idx, :, :].movedim(-2, -3)  # (..., KV, T, hd)
+        return rows.reshape((-1,) + tuple(rows.shape[-2:]))
+
+    def _slot_key(self, slot: int, j: int, col0: int = 0) -> tuple[int, int]:
         """Key words of slot ``slot``'s sketch of path ``j``: lattice point
-        (slot, 2j / 2j+1) of the engine key on stream 7 (the port's stand-in
-        for the reference's ``fold_in(fold_in(key, slot), j)``)."""
+        (slot, col0 + 2j / col0 + 2j+1) of the engine key on stream 7 (the
+        port's stand-in for the reference's ``fold_in(fold_in(key, slot),
+        j)``)."""
         k0, k1 = self._kv_key
         rows = torch.tensor([[slot]], dtype=torch.int64)
-        cols = torch.tensor([[2 * j, 2 * j + 1]], dtype=torch.int64)
+        cols = torch.tensor([[col0 + 2 * j, col0 + 2 * j + 1]],
+                            dtype=torch.int64)
         words = _lattice.counter_bits(k0, k1, rows, cols, _SKETCH_KEY_STREAM)
         return tuple(int(w) for w in words[0].tolist())
+
+    def _kv_roll_key(self, slot: int, j: int) -> tuple[int, int]:
+        """Key words of slot ``slot``'s rolling sketch of ring path ``j``
+        (the reference's ``fold_in(fold_in(fold_in(key, slot), 0x7011),
+        j)``), on columns the linear keys never reach."""
+        return self._slot_key(slot, j, _ROLL_COL_BASE)
 
     def _reset_slot_sketches(self, slot: int) -> None:
         sketches = {}
@@ -161,6 +186,12 @@ class ModelStep:
             sketches[path] = kv_compress.kv_sketch_init(
                 self._slot_key(slot, j), rows.shape[0], rows.shape[-1],
                 self.max_seq, self.kv_sketch_rank, device=self.device)
+        for j, path in enumerate(self._kv_roll_paths):
+            rows = self._kv_leaf_rows_ring(path, slot, 0, 1)
+            window = self._slot_leaf(path, slot).shape[-3]
+            sketches[path] = kv_compress.kv_rolling_init(
+                self._kv_roll_key(slot, j), rows.shape[0], rows.shape[-1],
+                window, self.kv_sketch_rank, device=self.device)
         self._kv_sketches[slot] = sketches
         # new tenant: drop any compressed-prefix state the slot carried
         if self.kv_fact is not None and self._kv_comp_len[slot]:
@@ -171,8 +202,15 @@ class ModelStep:
     def begin_slot(self, slot: int) -> None:
         """Complete per-slot reset for a new tenant: next write position
         back to 0, the slot's windowed ring rows zeroed, and — with
-        sketching on — fresh sketch states, cleared pending span, the
-        contiguity watchdog rearmed and any factored prefix dropped."""
+        sketching on — fresh sketch states (linear and rolling), cleared
+        pending span, the contiguity watchdog rearmed and any factored
+        prefix dropped.
+
+        The ring zeroing is load-bearing: while a tenant's history is
+        shorter than the window, the ring's unwritten slots sit at negative
+        positions inside the window, so every windowed softmax includes
+        them as zero rows (``transformer._ring_attend``); a reused slot
+        must present the same zeros as a fresh one."""
         self.pos[slot] = 0
         for path in self._ring_paths:
             self._slot_leaf(path, slot).zero_()
@@ -188,6 +226,19 @@ class ModelStep:
         for path in self._kv_paths:
             rows = self._kv_leaf_rows(path, slot, start, length)
             sk[path] = kv_compress.kv_sketch_append(sk[path], rows, start)
+        if not self._kv_contig[slot]:
+            # a gapped slot (the Engine's staggered admission) sees the
+            # uniform clock fall below its high-water mark when longer
+            # slots finish: its rolling sketches freeze at their last state
+            # (the slot never compresses anyway)
+            return
+        for path in self._kv_roll_paths:
+            # rows older than one window are already overwritten in the
+            # cache ring: clamp the span to the trailing window
+            end = start + length
+            lo = max(start, end - sk[path].window)
+            rows = self._kv_leaf_rows_ring(path, slot, lo, end - lo)
+            sk[path] = kv_compress.kv_rolling_append(sk[path], rows, lo)
 
     def _note_kv_span(self, slot: int, start: int, length: int) -> None:
         """Record that cache rows [start, start+length) landed for ``slot``;
@@ -224,17 +275,22 @@ class ModelStep:
 
     def kv_factors(self, slot: int) -> dict:
         """Rank-r FactoredKV per sketched cache leaf for ``slot``, finalized
-        from the incrementally maintained sketches against the slot's
-        logical history (``_kv_hist``)."""
+        from the incrementally maintained sketches: full-context leaves
+        against the slot's logical history (``_kv_hist``), windowed leaves
+        for the current window (``_kv_ring_hist``)."""
         if self._kv_sketches[slot] is None:
             raise ValueError(f"slot {slot} has no sketch state (engine "
                              f"built without kv_sketch_rank, or slot never "
                              f"admitted)")
         self._flush_kv_pending(slot)
-        return {path: kv_compress.kv_sketch_factor(
-                    self._kv_sketches[slot][path], self._kv_hist(slot, path),
-                    self.kv_sketch_rank)
-                for path in self._kv_paths}
+        sk = self._kv_sketches[slot]
+        out = {path: kv_compress.kv_sketch_factor(
+                   sk[path], self._kv_hist(slot, path), self.kv_sketch_rank)
+               for path in self._kv_paths}
+        for path in self._kv_roll_paths:
+            out[path] = kv_compress.kv_rolling_factor(
+                sk[path], self._kv_ring_hist(slot, path), self.kv_sketch_rank)
+        return out
 
     # -- acting on the sketches: compress / swap / account -------------------
     def _kv_hist(self, slot: int, path) -> torch.Tensor:
@@ -248,6 +304,13 @@ class ModelStep:
             f = self._load_factors(slot, path)
             hist = hist + f.us @ f.vt
         return hist
+
+    def _kv_ring_hist(self, slot: int, path) -> torch.Tensor:
+        """(heads_batch, window, d) window-ordered history of a windowed
+        leaf, oldest live row first: what ``kv_rolling_factor`` expects."""
+        sk = self._kv_sketches[slot][path]
+        start = max(0, sk.rows_seen - sk.window)
+        return self._kv_leaf_rows_ring(path, slot, start, sk.window)
 
     def _fact_leaves(self, path):
         group, i, name = path
@@ -441,8 +504,12 @@ class ModelStep:
 
     @staticmethod
     def _clock_rows(group: str, leaf: torch.Tensor, wp: int) -> torch.Tensor:
-        """View of every slot's row ``wp`` of an attention leaf."""
-        return leaf[:, :, wp] if group == "scan" else leaf[:, wp]
+        """View of every slot's row at clock ``wp`` of an attention leaf:
+        row ``wp`` of a full-context leaf, ring slot ``wp % window`` of a
+        windowed one (a live row of the masked-out slots there, which the
+        masked decode must restore)."""
+        row = wp % leaf.shape[-3]
+        return leaf[:, :, row] if group == "scan" else leaf[:, row]
 
     def sample(self, logits: torch.Tensor) -> np.ndarray:
         """(slots, vocab) logits -> (slots,) token ids: greedy at

@@ -14,17 +14,21 @@ HTTP ``Range:``, ``manifest.json``).  Fault tolerance: ``resilience.py``
 drivers; ``FaultySource`` / ``FlakyRangeFetcher`` fault injection;
 ``elastic_distributed_rsvd_streamed``; ``ResilienceReport``).
 
+Sliding windows: ``rolling.py`` (``RollingSketchState``, a ring of per-row
+sketches whose finalize equals a fresh sketch of the current window).
 Multi-host: ``merge_across_hosts`` (the collective merge over a
 ``torch.distributed`` group, ``state.py``).
 
 Consumers: ``core.rsvd.rsvd_streamed``, ``core.hosvd.rp_sthosvd_streamed``,
-``core.distributed.distributed_rsvd_streamed`` and ``serve.kv_compress``.
-Not ported yet: ``rolling.py`` (sliding-window sketches; item 16b).
+``core.distributed.distributed_rsvd_streamed`` and ``serve.kv_compress``
+(linear and rolling KV sketches).
 """
 
 from repro_torch.stream.state import (SketchState, hstack, init, merge,
                                       merge_across_hosts, update, update_cols)
 from repro_torch.stream.finalize import psi_times, range_basis, svd
+from repro_torch.stream.rolling import (RollingSketchState, rolling_finalize,
+                                        rolling_init, rolling_update)
 from repro_torch.stream.source import (ArraySource, DirectorySource,
                                        GeneratorSource, MemmapSource,
                                        TileSource, as_tile_source,
@@ -52,7 +56,8 @@ range = range_basis  # noqa: A001
 __all__ = [
     "SketchState", "init", "update", "update_cols", "merge",
     "merge_across_hosts", "hstack", "svd", "range", "range_basis",
-    "psi_times", "TileSource", "ArraySource", "MemmapSource",
+    "psi_times", "RollingSketchState", "rolling_init", "rolling_update",
+    "rolling_finalize", "TileSource", "ArraySource", "MemmapSource",
     "DirectorySource", "GeneratorSource", "ObjectStoreSource",
     "FileRangeFetcher", "HttpRangeFetcher", "RetryPolicy", "ShortReadError",
     "read_npy_header", "check_shard_name_order",

@@ -481,6 +481,82 @@ def test_fdec_kernel_full_slot_bf16(gen):
                        got)
 
 
+@pytest.mark.parametrize("state", ["early", "full"])
+def test_fdec_kernel_gemma2_engine_shape_bf16(gen, state):
+    """gemma2-2b's global layers in the engine: 8 slots x 8192 rows x 4 kv
+    heads x 256 (G = 2), r = 32, the attention softcap 50, bf16 cache,
+    comp_len mixed; early in the slot (write_pos 4700, garbage past it) and
+    at the full slot (write_pos 8191)."""
+    wp, comp = {"early": (4700, (0, 4701, 4608, 1024, 0, 64, 4672, 1)),
+                "full": (8191, (8128, 0, 4096, 8128, 64, 8064, 8192, 1))}[state]
+    args = _fdec_inputs(gen, b=8, s=8192, h=8, kvh=4, hd=256, r=32, comp=comp,
+                        wp=wp, dtype=torch.bfloat16, garbage_past_wp=True)
+    before = k4.launches
+    got = k4.factored_decode_attention(*args, wp, scale=256 ** -0.5, cap=50.0)
+    assert k4.launches == before + 1
+    want = k4.factored_decode_plain(*args, wp, scale=256 ** -0.5, cap=50.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_fdec_kernel_head_dim_256_groups_2_f32(gen, cap):
+    """gemma2's head shape (hd 256, two q heads a kv head) at a small S in
+    f32, with and without the tanh softcap (1e-4: rank-32 factors and
+    256-wide rows sum in another order than the einsums)."""
+    args = _fdec_inputs(gen, b=3, s=96, h=8, kvh=4, hd=256, r=32,
+                        comp=(40, 0, 90), wp=90)
+    got, want = _fdec_both(args, 90, cap=cap, block_kv=None, hd=256)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_rolling_finalize_through_kernel2_bitwise(gen):
+    """stream.rolling_* with kernel 2 (the default method) over a stream
+    longer than two windows in ragged tiles, gap included: the finalized
+    sketch equals kernel 2's fresh sketch of the trailing window bit for
+    bit."""
+    from repro_torch import stream
+    n, p, window = 256, 40, 512
+    a = torch.randn((1300, n), generator=gen, device="cuda")
+    rs = stream.rolling_init(KEY, n, p, window=window, device="cuda")
+    before, pos = k2.launches, 0
+    for c in (100, 1, 300, 257, 512, 77):
+        rs = stream.rolling_update(rs, a[pos:pos + c], pos)
+        pos += c
+    assert k2.launches - before == 6
+    rs = stream.rolling_update(rs, a[pos + 20:1300], pos + 20)   # a 20-row gap
+    rows = a[1300 - window:1300].clone()
+    rows[window - (1300 - pos):window - (1300 - pos) + 20] = 0.0
+    fresh = stream.update(stream.init(KEY, n, p, max_rows=window,
+                                      method="shgemm_fused", device="cuda"),
+                          rows, 0)
+    assert torch.equal(stream.rolling_finalize(rs).y, fresh.y)
+
+
+def test_scheduler_kernel_path_matches_plain_path_smoke():
+    """Smoke gemma2 (16-row rings) through the scheduler on the card: the
+    kernel configuration (kernel 4 on the compressed global layers) and
+    the plain one give the same virtual-clock SLO summary and swaps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.serve import loadgen
+    cfg = smoke_config(R.get_arch("gemma2-2b")).with_(activation_dtype="float32")
+    params = launch.init_weights(cfg, seed=0, device="cuda")
+    trace = loadgen.generate_trace(3, 6, 500.0, vocab=cfg.vocab,
+                                   prompt_short=(3, 6), prompt_long=(20, 30),
+                                   max_new_range=(3, 20))
+    kw = dict(slots=3, max_seq=48, kv_sketch_rank=8, kv_compress_ratio=2.0,
+              prefill_chunk=4, device="cuda")
+    runs = []
+    for c in (cfg, cfg.with_(use_flash_kernel=True)):
+        before = k4.launches
+        res = launch.run_scheduler(c, params, trace, **kw)
+        runs.append((res["summary"], k4.launches - before,
+                     list(res["scheduler"].model._kv_comp_len)))
+    assert runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2]
+    assert runs[0][1] == 0 and runs[1][1] > 0
+    assert runs[1][0]["accounting"]["in_flight"] == 0
+
+
 @pytest.mark.parametrize("act", ["float32", "bfloat16"])
 def test_engine_kernel_path_matches_plain_path_smoke(act):
     """Smoke qwen3: the engine decoding through kernel 4 stays in lockstep

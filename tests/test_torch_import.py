@@ -26,7 +26,7 @@ from repro_torch.configs.base import smoke_config
 from repro_torch.launch import serve as launch
 from repro_torch.launch import train as launch_train
 from repro_torch.models import cache as cache_mod, registry as R
-from repro_torch.serve import kv_compress
+from repro_torch.serve import kv_compress, loadgen
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.model_step import ModelStep
 from repro_torch.stream import resilience as resil
@@ -73,6 +73,24 @@ def test_serving_subpackages_import_without_jax(sub):
             f"import repro_torch.{sub} as p\n"
             f"for m in pkgutil.walk_packages(p.__path__, 'repro_torch.{sub}.'):\n"
             f"    importlib.import_module(m.name)\n"
+            f"assert 'jax' not in sys.modules\n"
+            f"assert not any(n.split('.')[0] == 'repro' for n in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serve.scheduler",
+                                    "repro_torch.serve.loadgen",
+                                    "repro_torch.serve.metrics",
+                                    "repro_torch.stream.rolling",
+                                    "repro_torch.launch.serve"])
+def test_scheduler_slice_modules_import_without_jax(module):
+    """The open-loop serving slice's modules, each imported alone in a fresh
+    interpreter, load no jax and nothing of the reference."""
+    code = (f"import sys\n"
+            f"import {module}\n"
             f"assert 'jax' not in sys.modules\n"
             f"assert not any(n.split('.')[0] == 'repro' for n in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -160,10 +178,18 @@ ENTRY_POINTS = {
     "run_world": lambda **d: world.run_world(
         "torch_dist_workers:fail_case", 1, kwargs={"hang": False}, **d),
     "kv_sketch_init": lambda **d: kv_compress.kv_sketch_init(_KEY, 2, 16, 8, 4, **d),
+    "kv_rolling_init": lambda **d: kv_compress.kv_rolling_init(_KEY, 2, 16, 8, 4, **d),
+    "rolling_init": lambda **d: stream.rolling_init(_KEY, 4, 2, window=4, **d),
     "ModelStep": lambda **d: ModelStep(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "Engine": lambda **d: Engine(_SMOKE, _SMOKE_PARAMS, slots=1, max_seq=8, **d),
     "run_engine": lambda **d: launch.run_engine(
         _SMOKE, _SMOKE_PARAMS, [[1, 2]], max_new=2, slots=1, max_seq=8, **d),
+    "run_scheduler": lambda **d: launch.run_scheduler(
+        _SMOKE, _SMOKE_PARAMS, [loadgen.TraceRequest(0, 0.0, [1, 2], 2)],
+        slots=1, max_seq=8, **d),
+    "launch.serve": lambda **d: launch.main(
+        ["--smoke", "--arrival-rate", "100", "--requests", "1", "--slots", "1",
+         "--max-seq", "16"] + (["--device", d["device"]] if d else [])),
     "launch.train": lambda **d: launch_train.main(
         ["--smoke", "--steps", "1", "--seq", "8", "--global-batch", "2",
          "--ckpt-dir", tempfile.mkdtemp()]

@@ -9,7 +9,12 @@ unit in the last place at the largest logit's magnitude.  Compression runs
 at rank == head_dim, where every swap is exact whatever Omega, so no Omega
 is patched; comp_len histories must be equal.  Also the reference's engine
 contracts: staggered admission never compresses, the compress_slot error
-paths, strictly smaller compressed bytes, and the bounded queue."""
+paths, strictly smaller compressed bytes, and the bounded queue.
+
+The other dense archs the port serves (gemma2 with its windowed ring layers,
+codeqwen1.5, command-r-plus) run the model step's chunked prefill and masked
+decode against the reference's at the qwen3 test's 1e-4, and gemma2 the f32
+engine lockstep past its 16-row window, compressed."""
 
 import math
 
@@ -38,9 +43,9 @@ torch.set_num_threads(1)
 PROMPTS = [[5, 7, 11, 2], [3, 9, 1, 4]]
 
 
-def _pair(act="bfloat16"):
-    ref_cfg = ref_smoke(RR.get_arch("qwen3-0.6b")).with_(activation_dtype=act)
-    cfg = smoke_config(R.get_arch("qwen3-0.6b")).with_(activation_dtype=act)
+def _pair(act="bfloat16", arch="qwen3-0.6b"):
+    ref_cfg = ref_smoke(RR.get_arch(arch)).with_(activation_dtype=act)
+    cfg = smoke_config(R.get_arch(arch)).with_(activation_dtype=act)
     ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
     params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
                                    cfg)
@@ -117,6 +122,46 @@ def test_model_step_prefill_rows_and_masked_decode_match_reference():
                                np.asarray(ref.cache["scan"][0]["k"], np.float32),
                                rtol=1e-2, atol=1e-2)
     assert list(port.pos) == list(ref.pos) == [3, 2]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "codeqwen1.5-7b",
+                                  "command-r-plus-104b"])
+def test_model_step_matches_reference_across_archs(arch):
+    """Chunked prefill into two slots (gemma2: across its 16-row ring's
+    end), then a masked decode step: logits within 1e-4, caches within a
+    bf16 ulp, positions equal."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    ref = RefModelStep(ref_cfg, ref_params, slots=2, max_seq=32)
+    port = ModelStep(cfg, params, slots=2, max_seq=32, device="cpu")
+    tok = np.random.default_rng(2).integers(1, cfg.vocab, 30).tolist()
+    for slot, start, end in ((0, 0, 9), (0, 9, 18), (1, 0, 5), (0, 18, 21)):
+        want = np.asarray(ref.prefill_rows(slot, tok[start:end], start))
+        got = port.prefill_rows(slot, tok[start:end], start).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    tokens = np.array([[tok[21]], [tok[22]]], np.int32)
+    mask = np.array([True, False])
+    want = np.asarray(ref.decode_logits(tokens, 21, slot_mask=mask))
+    got = port.decode_logits(tokens, 21, slot_mask=mask).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for group in ("pre", "scan", "rem"):
+        for layer, ref_layer in zip(port.cache[group] or (), ref.cache[group] or ()):
+            for name in layer:
+                np.testing.assert_allclose(layer[name].float().numpy(),
+                                           np.asarray(ref_layer[name], np.float32),
+                                           rtol=1e-2, atol=1e-2)
+    assert list(port.pos) == list(ref.pos) == [21, 5]
+
+
+def test_engine_matches_reference_gemma2():
+    """gemma2's engines in f32 lockstep past the window, compressing its
+    global layers at rank == head_dim while the local rings wrap."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", "gemma2-2b")
+    kw = dict(slots=2, max_seq=64, kv_sketch_rank=cfg.head_dim, kv_compress_ratio=1.0)
+    ref = RefEngine(ref_cfg, ref_params, **kw)
+    port = Engine(cfg, params, device="cpu", **kw)
+    diffs, _ = _lockstep(ref, port, max_new=30, steps=40)
+    assert max(diffs) < 1e-1, max(diffs)
+    assert max(port.pos) > 16 and (port._kv_comp_len > 0).any()
 
 
 def _port_engine(**kw):

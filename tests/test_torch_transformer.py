@@ -1,8 +1,19 @@
 """The port's transformer (schema, forward, caches, serving steps) on smoke
-qwen3 against the reference, with the reference's weights carried across by
-``convert.params_from_reference``: forward logits at 5e-2 (the reference's
-flash-path tolerance, tests/test_flash_attention.py), prefill-then-decode
-vs a full forward at 0.15 with correlation > 0.99 (tests/test_arch_smoke.py).
+configs against the reference, with the reference's weights carried across
+by ``convert.params_from_reference``: forward logits at 5e-2 (the
+reference's flash-path tolerance, tests/test_flash_attention.py),
+prefill-then-decode vs a full forward at 0.15 with correlation > 0.99
+(tests/test_arch_smoke.py).
+
+Across the dense archs the port serves (qwen3, gemma2, codeqwen1.5,
+command-r-plus), in f32 activations: forward logits and prefill-then-decode
+logits within 1.6e-5 + 1e-6 relative of the reference's, ``loss_fn`` within
+3e-7 relative.
+gemma2's windowed layers decode over a ring-buffer cache of window rows:
+token-by-token decode past the window, chunked prefill across the ring's
+end (chunks of 1, 5 and 16 rows against the reference's token-by-token
+prefill) and the masked decode at a clock past the window, each within
+1e-4 of the reference's logits and one bf16 ulp of its cache rows.
 """
 
 import numpy as np
@@ -185,9 +196,11 @@ def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
         T.schema(cfg)
 
 
-def test_training_and_windowed_decode_raise():
+def test_training_and_windowed_decode_raise(gemma2):
     """Training is ported (tests/test_torch_train.py); what it does not
-    cover raises: the vocab-parallel loss and the VLM's loss."""
+    cover raises: the vocab-parallel loss and the VLM's loss.  Windowed
+    (ring) decode is ported: on a cache of fewer rows than the window (a
+    ring that never wraps) it runs and matches the reference."""
     from repro_torch.launch.mesh import HostMesh
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16g"):
         T.cross_entropy(torch.zeros((1, 2, 8)), torch.zeros((1, 2), dtype=torch.long),
@@ -195,9 +208,175 @@ def test_training_and_windowed_decode_raise():
     with pytest.raises(NotImplementedError, match="VLM.*ROADMAP Queue 1 item 16f"):
         T.loss_fn(smoke_config(R.get_arch("llava-next-34b")), {},
                   {"tokens": torch.zeros((1, 2), dtype=torch.long)})
-    cfg = smoke_config(R.get_arch("gemma2-2b"))
-    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    ref_cfg, cfg, ref_params, params = gemma2
+    ref_cache = rcache.build_cache(ref_cfg, 1, 8)
     cache = C.build_cache(cfg, 1, 8, device="cpu")       # window 16 >= 8: ring
-    with pytest.raises(NotImplementedError, match="windowed"):
-        R.make_serve_step(cfg)(params, {"tokens": torch.zeros((1, 1), dtype=torch.long),
-                                        "cache": cache, "write_pos": 3})
+    assert cache["scan"][0]["k"].shape[2] == 8
+    tok = _tokens((1, 4), cfg.vocab, seed=6)
+    ref_step = jax.jit(RR.make_serve_step(ref_cfg))
+    for i in range(4):
+        want, ref_cache = ref_step(ref_params, {
+            "tokens": jnp.asarray(tok[:, i:i + 1]), "cache": ref_cache,
+            "write_pos": jnp.asarray(i, jnp.int32)})
+        got, _ = R.make_serve_step(cfg)(params, {
+            "tokens": torch.as_tensor(tok[:, i:i + 1]).long(), "cache": cache,
+            "write_pos": i})
+        np.testing.assert_allclose(got.numpy(), _f32(want), rtol=1e-4, atol=1e-4)
+
+
+# -- gemma2's windowed layers over a ring-buffer cache ------------------------
+
+RING_SEQ, RING_TOKENS = 48, 40          # smoke window 16: the ring wraps twice
+
+
+@pytest.fixture(scope="module")
+def gemma2():
+    ref_cfg = ref_smoke(RR.get_arch("gemma2-2b")).with_(activation_dtype="float32")
+    cfg = smoke_config(R.get_arch("gemma2-2b")).with_(activation_dtype="float32")
+    ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
+                                   cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+@pytest.fixture(scope="module")
+def gemma2_ref_decode(gemma2):
+    """The reference's serve step token by token over RING_TOKENS positions
+    of a (2, RING_SEQ) cache: the logits after each token and the cache."""
+    ref_cfg, cfg, ref_params, _ = gemma2
+    tok = _tokens((2, RING_TOKENS), cfg.vocab, seed=7)
+    step = jax.jit(RR.make_serve_step(ref_cfg))
+    cache, logits = rcache.build_cache(ref_cfg, 2, RING_SEQ), []
+    for i in range(RING_TOKENS):
+        out, cache = step(ref_params, {"tokens": jnp.asarray(tok[:, i:i + 1]),
+                                       "cache": cache,
+                                       "write_pos": jnp.asarray(i, jnp.int32)})
+        logits.append(np.asarray(out))
+    return tok, logits, cache
+
+
+def _assert_caches_close(cache, ref_cache):
+    """Every k/v leaf within one bf16 ulp (the same f32 value rounded on
+    either side of a bf16 boundary)."""
+    for group in ("pre", "scan", "rem"):
+        for layer, ref_layer in zip(cache[group] or (), ref_cache[group] or ()):
+            for name in layer:
+                np.testing.assert_allclose(_f32(layer[name]), _f32(ref_layer[name]),
+                                           rtol=1e-2, atol=1e-2)
+
+
+def test_ring_decode_past_window_matches_reference(gemma2, gemma2_ref_decode):
+    _, cfg, _, params = gemma2
+    tok, want, ref_cache = gemma2_ref_decode
+    cache = C.build_cache(cfg, 2, RING_SEQ, device="cpu")
+    assert cache["scan"][0]["k"].shape[2] == 16 and cache["scan"][1]["k"].shape[2] == 48
+    step = R.make_serve_step(cfg)
+    for i in range(RING_TOKENS):
+        got, _ = step(params, {"tokens": torch.as_tensor(tok[:, i:i + 1]).long(),
+                               "cache": cache, "write_pos": i})
+        np.testing.assert_allclose(got.numpy(), want[i], rtol=1e-4, atol=1e-4)
+    _assert_caches_close(cache, ref_cache)
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+def test_chunked_ring_prefill_matches_token_by_token(gemma2, gemma2_ref_decode, chunk):
+    """Chunks written in one serve step each, across the ring's end: the
+    last token's logits of every chunk and the final caches match the
+    reference's token-by-token steps."""
+    _, cfg, _, params = gemma2
+    tok, want, ref_cache = gemma2_ref_decode
+    cache = C.build_cache(cfg, 2, RING_SEQ, device="cpu")
+    step = R.make_serve_step(cfg)
+    for start in range(0, RING_TOKENS, chunk):
+        end = min(start + chunk, RING_TOKENS)
+        got, _ = step(params, {"tokens": torch.as_tensor(tok[:, start:end]).long(),
+                               "cache": cache, "write_pos": start})
+        np.testing.assert_allclose(got.numpy(), want[end - 1], rtol=1e-4, atol=1e-4)
+    _assert_caches_close(cache, ref_cache)
+
+
+def test_masked_decode_past_window_matches_reference(gemma2):
+    """ModelStep.decode_logits with a slot mask at a clock past the window:
+    the clock's ring slot of the masked-out slot holds one of its live rows,
+    which must be restored (the reference's masked cache merge)."""
+    from repro.serve.model_step import ModelStep as RefModelStep
+    from repro_torch.serve.model_step import ModelStep
+    ref_cfg, cfg, ref_params, params = gemma2
+    ref = RefModelStep(ref_cfg, ref_params, slots=2, max_seq=RING_SEQ)
+    port = ModelStep(cfg, params, slots=2, max_seq=RING_SEQ, device="cpu")
+    tok = _tokens((RING_TOKENS,), cfg.vocab, seed=8).tolist()
+    for e in (ref, port):
+        e.prefill_rows(0, tok[:12], 0)
+        e.prefill_rows(0, tok[12:20], 12)
+        e.prefill_rows(1, tok[24:30], 0)
+    clock = 20                                    # ring slot 20 % 16 = 4
+    ring = port.cache["scan"][0]["k"]
+    before = ring[:, 1, clock % 16].clone()
+    assert before.any()                           # slot 1's live row of pos 4
+    tokens, mask = np.array([[tok[30]], [tok[31]]], np.int32), np.array([True, False])
+    want = np.asarray(ref.decode_logits(tokens, clock, slot_mask=mask))
+    got = port.decode_logits(tokens, clock, slot_mask=mask).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(ring[:, 1, clock % 16], before)
+    _assert_caches_close(port.cache, ref.cache)
+
+
+# -- the dense archs the port serves, in f32 activations ---------------------
+
+DENSE_ARCHS = ["qwen3-0.6b", "gemma2-2b", "codeqwen1.5-7b", "command-r-plus-104b"]
+# f32 logits: 1.6e-5, plus 1e-6 of |logit| (16 f32 ulps):
+# command-r's logits reach ~66, where a 2.3e-5 difference is 3.5e-7 relative
+F32_LOGITS = dict(rtol=1e-6, atol=1.6e-5)
+
+
+def _f32_pair(arch):
+    ref_cfg = ref_smoke(RR.get_arch(arch)).with_(activation_dtype="float32")
+    cfg = smoke_config(R.get_arch(arch)).with_(activation_dtype="float32")
+    ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
+                                   cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_archs_match_reference_f32(arch):
+    """Forward logits (the flash configuration: kernel 3's plain version on
+    the CPU where the layer qualifies) and ``loss_fn``."""
+    ref_cfg, cfg, ref_params, params = _f32_pair(arch)
+    tok = _tokens((2, 24), cfg.vocab, seed=9)
+    want = RT.forward(ref_cfg.with_(use_flash_kernel=True), ref_params,
+                      jnp.asarray(tok)).logits
+    got = T.forward(cfg.with_(use_flash_kernel=True),
+                    T.cast_params_for_compute(cfg, params),
+                    torch.as_tensor(tok).long()).logits
+    np.testing.assert_allclose(_f32(got), _f32(want), **F32_LOGITS)
+    labels = _tokens((2, 24), cfg.vocab, seed=10)
+    labels[0, :5] = -1
+    want = float(RT.loss_fn(ref_cfg, RT.cast_params_for_compute(ref_cfg, ref_params),
+                            {"tokens": jnp.asarray(tok), "labels": jnp.asarray(labels)}))
+    got = float(T.loss_fn(cfg, T.cast_params_for_compute(cfg, params),
+                          {"tokens": torch.as_tensor(tok).long(),
+                           "labels": torch.as_tensor(labels).long()}))
+    assert got == pytest.approx(want, rel=3e-7)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_prefill_then_decode_matches_reference_f32(arch):
+    """make_prefill_step, grow_cache by one row and one serve step, against
+    the reference's same three steps (gemma2's local layers decode over a
+    12 + 1 row ring, fewer rows than the window)."""
+    ref_cfg, cfg, ref_params, params = _f32_pair(arch)
+    b, s = 2, 12
+    tok = _tokens((b, s + 1), cfg.vocab, seed=11)
+    want, ref_cache = RR.make_prefill_step(ref_cfg)(ref_params,
+                                                    {"tokens": jnp.asarray(tok[:, :s])})
+    got, cache = R.make_prefill_step(cfg)(params,
+                                          {"tokens": torch.as_tensor(tok[:, :s]).long()})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
+    want, _ = RR.make_serve_step(ref_cfg)(ref_params, {
+        "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
+        "write_pos": jnp.asarray(s, jnp.int32)})
+    got, _ = R.make_serve_step(cfg)(params, {
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
+        "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
