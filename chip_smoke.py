@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 620 s on an H100, the build included).
+(about 750–850 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -133,6 +133,23 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    (13c) ``stream.rolling_*`` through kernel 2 on a (4096 + 1000, 256)
    stream, the finalized sketch equal to the fresh sketch of the last
    window bit for bit.
+14. routed-MoE serving, qwen3-moe-30b-a3b at full width and depth (48
+   layers, 128 experts top-8; random weights from a seed drawn straight
+   into bf16, the router f32: 61 GB), after the earlier phases' models are
+   freed: (14a) a (1, 4096) ``make_prefill_step`` with kernel 3 (48
+   launches) and with the plain attention, held to the bf16 gate, peak
+   memory; (14b) grow_cache + one decode step against a full forward over
+   4097 (the reference's 0.15, correlation > 0.99); (14c) a 1024-token
+   prompt through ``prefill_rows`` in one chunk and in chunks of 128 (8
+   slots: dropless), held to the bf16 gate; (14d) the kernel and plain
+   engines in bf16 lockstep (8 slots x 2048, rank-32 sketches, 8 prompts
+   of 256, 64 new), kernel 4's launches = steps x 48, equal comp_len, the
+   share of (token, layer) routed expert sets both paths chose alike;
+   kernel 4 against its plain version at 14d's final state and timed
+   there, kernel 3 against its plain version at (1, 4096, 32|4, 128) and
+   timed beside SDPA and its bound; (14e) the scheduler on the kernel path
+   over a seeded trace of 8 requests, every request accounted, the
+   virtual-clock SLOs; the phase within 240 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -144,6 +161,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -765,15 +783,12 @@ def phase7_engine(torch, cfg, weights, card) -> dict:
     return out
 
 
-def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
-    """Kernel, plain version, bound and library call for kernels 3-4 at the
-    path's shapes: flash at the prefill shape, fdec on layer 0 of the kernel
-    engine's final state (its cache, factors and comp_len)."""
+def flash_times(torch, gen, label, h, kvh, hd, s, card) -> tuple:
+    """Kernel 3 at (1, s, h|kvh, hd) bf16 causal by CUDA events, beside its
+    plain version, ``scaled_dot_product_attention`` (the library call) and
+    its bound: (kernel, plain, library, bound ms, what bounds it)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import factored_decode as k4
     from repro_torch.kernels import flash_attention as k3
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s = PREFILL_SEQ
     q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=gen.device)
                .to(torch.bfloat16) for n in (h, kvh, kvh))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -786,13 +801,22 @@ def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
     flash = (t_k, t_p, t_l, max(t_ops, t_bytes) * 1e3,
              "operations" if t_ops >= t_bytes else "bytes")
     per_sm = k3.blocks_per_sm(hd, torch.bfloat16)
-    print(f"[time] flash_attention (1, {s}, {h}|{kvh}, {hd}) bf16 causal: kernel "
-          f"{t_k:.3f} ms, plain {t_p:.3f} ms, scaled_dot_product_attention "
-          f"{t_l:.3f} ms, bound {flash[3]:.3f} ms ({flash[4]}); kernel/bound "
-          f"{t_k / flash[3]:.2f}x, {k3.causal_flops(1, s, h, hd) / t_k / 1e9:.1f} "
-          f"TFLOP/s; occupancy {per_sm} blocks of {k3.WARPS} warps "
-          f"an SM [{card}]")
-    del q, k, v, qt, kt, vt
+    print(f"[time] flash_attention {label}(1, {s}, {h}|{kvh}, {hd}) G {h // kvh} "
+          f"bf16 causal: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+          f"scaled_dot_product_attention {t_l:.3f} ms, bound {flash[3]:.3f} ms "
+          f"({flash[4]}); kernel/bound {t_k / flash[3]:.2f}x, "
+          f"{k3.causal_flops(1, s, h, hd) / t_k / 1e9:.1f} TFLOP/s; occupancy "
+          f"{per_sm} blocks of {k3.WARPS} warps an SM [{card}]")
+    return flash
+
+
+def phase8_timings(torch, gen, cfg, kern_engine, card) -> dict:
+    """Kernel, plain version, bound and library call for kernels 3-4 at the
+    path's shapes: flash at the prefill shape, fdec on layer 0 of the kernel
+    engine's final state (its cache, factors and comp_len)."""
+    from repro_torch.kernels import factored_decode as k4
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    flash = flash_times(torch, gen, "", h, kvh, hd, PREFILL_SEQ, card)
 
     eng = kern_engine
     wp = int(max(eng.pos)) - 1                     # the last decode step's clock
@@ -2626,7 +2650,7 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
     t_cell = time.perf_counter()
     cfg = R.get_arch(spec["arch"])
     weights = T.cast_params_for_compute(
-        cfg, launch.init_weights(cfg, seed=0, device=dev))
+        cfg, launch.init_weights(cfg, seed=0, device=dev, compute_dtype=True))
     torch.cuda.synchronize()
     trace = cell_trace(spec, cfg.vocab)
     kw = dict(spec["model"], prefill_chunk=spec["prefill_chunk"],
@@ -2918,6 +2942,366 @@ def _phase13(torch, dev, card) -> dict:
     print(f"[sched] phase 13 took {out['seconds']:.1f} s (13a {out['13a']['seconds_cell']:.1f} "
           f"s, 13b {out['13b']['seconds_cell']:.1f} s); kernel 4 launches "
           f"{out['scheduler_launches']} (counts set to 0 before each run)")
+    return out
+
+
+# Phase 14: routed-MoE serving, qwen3-moe-30b-a3b at full width and depth
+# (48 layers, 32|4 heads of 128, 128 experts top-8 of width 768, vocab
+# 151936; random weights from a seed drawn straight into bf16, the router
+# f32: 61 GB).  Cuts (PERF.md section 4): prefill batch 32 -> 1 at 4096 of
+# prefill_32k's 32768 tokens; 8-request engine and scheduler runs.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PREFILL_SEQ = 4096                  # 14a-b
+MOE_CHUNK_PROMPT, MOE_CHUNK = 1024, 128  # 14c
+MOE_ENGINE_KW = dict(slots=8, max_seq=2048, kv_sketch_rank=32, kv_compress_ratio=2.0)
+MOE_REQUESTS, MOE_PROMPT_LEN, MOE_MAX_NEW = 8, 256, 64   # 14d
+MOE_SCHED = {"prefill_chunk": 256, "max_queue": 64,        # 14e
+             "trace": dict(seed=3, n_requests=8, arrival_rate=200.0,
+                           prompt_short=(64, 256), prompt_long=(512, 1024),
+                           long_frac=0.25, max_new_range=(32, 64))}
+PHASE14_LIMIT_S = 240.0
+
+
+def routes_alike(logs: dict) -> tuple[int, int, int | None]:
+    """(sets alike, sets, first log entry that differs) over two paths'
+    routed expert sets, one (tokens, k) tensor of sorted ids a layer call."""
+    a, b = logs["plain"], logs["kernel"]
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)),
+          f"the two paths routed different token counts ({len(a)} vs {len(b)} "
+          f"layer calls)")
+    same = [(x == y).all(-1) for x, y in zip(a, b)]
+    first = next((i for i, m in enumerate(same) if not bool(m.all())), None)
+    return (sum(int(m.sum()) for m in same), sum(int(m.numel()) for m in same),
+            first)
+
+
+def phase14_moe(torch, dev, card) -> dict:
+    """Phase 14: qwen3-moe-30b-a3b through the serving entry points at full
+    width and depth: (14a) make_prefill_step on the kernel and plain paths,
+    (14b) grow_cache + one decode step against a full forward, (14c) a
+    prompt through prefill_rows in one chunk and in chunks, (14d) the kernel
+    and plain engines in bf16 lockstep with the share of routed expert sets
+    alike, then kernels 4 and 3 at the path's shapes against their plain
+    versions, and timed, (14e) the scheduler on the kernel path with one
+    decode step traced."""
+    with torch.inference_mode():       # serving: no autograd bookkeeping
+        return _phase14(torch, dev, card)
+
+
+def _phase14(torch, dev, card) -> dict:
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.model_step import ModelStep
+    t_phase = time.perf_counter()
+    out, sub = {}, {}
+    cfg = R.get_arch(MOE_ARCH)
+    kcfg = cfg.with_(use_flash_kernel=True)
+    h, kvh, hd, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    weights = T.cast_params_for_compute(
+        cfg, launch.init_weights(cfg, seed=0, device=dev, compute_dtype=True))
+    torch.cuda.synchronize()
+    nbytes = sum(w.numel() * w.element_size() for w in weights.values())
+    print(f"[moe] {cfg.name}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+          f"({T.active_param_count(cfg) / 1e9:.3f} B active a token) at the "
+          f"published widths ({n_layers} layers, d_model {cfg.d_model}, {h}|{kvh} "
+          f"heads of {hd} with qk-norm, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k} of width {cfg.moe.d_expert}, vocab {cfg.vocab}), "
+          f"drawn in bf16 (router f32) from seed 0: {nbytes / 1e9:.2f} GB in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({base:.2f} GiB "
+          f"before the draw) [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(1414)
+    tokens = torch.randint(0, cfg.vocab, (1, MOE_PREFILL_SEQ + 1), generator=gen,
+                           device=dev)
+    prompt = tokens[:, :MOE_PREFILL_SEQ]
+
+    # -- 14a: whole-prompt prefill, kernel path vs plain attention --------
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    k3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_k, cache = launch.run_prefill(kcfg, weights, prompt)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    launches = k3.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k3.launches = 0
+    t0 = time.perf_counter()
+    logits_p, cache_p = launch.run_prefill(cfg, weights, prompt)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    plain_launches = k3.launches
+    del cache_p
+    ok, msg = logits_agree(torch, logits_k, logits_p, "bfloat16", 5e-2)
+    cap = moe.capacity(MOE_PREFILL_SEQ, cfg.moe.num_experts, cfg.moe.top_k,
+                       cfg.moe.capacity_factor)
+    print(f"[moe] 14a {cfg.name} (1, {MOE_PREFILL_SEQ}) make_prefill_step (expert "
+          f"capacity {cap} of {MOE_PREFILL_SEQ} tokens): kernel path "
+          f"{t_k * 1e3:.1f} ms (first call; kernel 3 launches {launches}), plain "
+          f"attention {t_p * 1e3:.1f} ms (launches {plain_launches}); peak memory "
+          f"{peak:.2f} GiB; last-position logits kernel vs plain: {msg} [{card}]")
+    check(launches == n_layers, f"14a: flash launches {launches} != {n_layers}")
+    check(plain_launches == 0, f"14a: the plain path launched kernel 3 {plain_launches} times")
+    check(bool(torch.isfinite(logits_k).all()), "14a: prefill logits not finite")
+    check(ok, "14a: the kernel path's prefill logits disagree with the plain path's")
+    out["14a"] = {"launches": launches, "ms_kernel": t_k * 1e3, "ms_plain": t_p * 1e3,
+                  "peak_gib": peak, "err": (logits_k - logits_p).abs().max().item()}
+    sub["14a"] = time.perf_counter() - t_sub
+
+    # -- 14b: grow_cache + one decode step vs a full forward over S + 1 ----
+    t_sub = time.perf_counter()
+    grown = cache_mod.grow_cache(cache, 1)
+    del cache
+    got, _ = R.make_serve_step(kcfg)(weights, {
+        "tokens": tokens[:, MOE_PREFILL_SEQ:], "cache": grown,
+        "write_pos": MOE_PREFILL_SEQ})
+    del grown
+    want = R._final_logits(kcfg, T.forward(kcfg, weights, tokens,
+                                           last_only=True).logits[:, -1])
+    corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+    diff = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=0.15, atol=0.15)) and corr > 0.99
+    print(f"[moe] 14b grow_cache + one decode step at write_pos {MOE_PREFILL_SEQ} "
+          f"(dropless: 1 token, capacity 8) vs a full forward over "
+          f"{MOE_PREFILL_SEQ + 1} (capacity "
+          f"{moe.capacity(MOE_PREFILL_SEQ + 1, cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor)}): "
+          f"max|d| {diff:.3e} at |logit| max {want.abs().max().item():.1f}, "
+          f"correlation {corr:.6f} (rtol = atol = 0.15, correlation > 0.99) [{card}]")
+    check(ok, "14b: prefill + decode disagrees with the full forward")
+    out["14b"] = {"max_diff": diff, "corr": corr}
+    del got, want
+    sub["14b"] = time.perf_counter() - t_sub
+
+    # -- 14c: one prompt through prefill_rows in one chunk and in chunks --
+    t_sub = time.perf_counter()
+    prompt_c = tokens[0, :MOE_CHUNK_PROMPT].tolist()
+    runs = {}
+    for label, chunk in (("one chunk", MOE_CHUNK_PROMPT), ("chunks", MOE_CHUNK)):
+        m = ModelStep(kcfg, weights, device=dev, slots=MOE_ENGINE_KW["slots"],
+                      max_seq=MOE_ENGINE_KW["max_seq"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, MOE_CHUNK_PROMPT, chunk):
+            last = m.prefill_rows(0, prompt_c[start:start + chunk], start)
+        torch.cuda.synchronize()
+        runs[label] = (last, (time.perf_counter() - t0) * 1e3, m._pool_prefill)
+        del m
+    (one, t_one, pool1), (many, t_many, pool2) = runs.values()
+    ok, msg = logits_agree(torch, many[None], one[None], "bfloat16", 5e-2)
+    print(f"[moe] 14c a {MOE_CHUNK_PROMPT}-token prompt through ModelStep.prefill_rows "
+          f"({MOE_ENGINE_KW['slots']} slots: the chunk runs as one step, dropless) in "
+          f"one chunk ({t_one:.1f} ms) and in chunks of {MOE_CHUNK} ({t_many:.1f} ms): "
+          f"last logits {msg} [{card}]")
+    check(not pool1 and not pool2, "14c: the 8-slot model step prefills token by token")
+    check(ok, "14c: chunked prefill disagrees with the one-chunk prefill")
+    out["14c"] = {"ms_one": t_one, "ms_chunks": t_many}
+    del one, many, runs
+    sub["14c"] = time.perf_counter() - t_sub
+
+    # -- 14d: kernel vs plain engines in bf16 lockstep ---------------------
+    t_sub = time.perf_counter()
+    prompts = launch.make_prompts(MOE_REQUESTS, MOE_PROMPT_LEN, cfg.vocab, seed=1)
+    engines = {"plain": Engine(cfg, weights, device=dev, **MOE_ENGINE_KW),
+               "kernel": Engine(kcfg, weights, device=dev, **MOE_ENGINE_KW)}
+    logs = {name: [] for name in engines}
+    current = [None]
+    route = moe.route
+
+    def recording(c, logits):
+        gates, experts = route(c, logits)
+        if current[0] is not None:
+            current[0].append(torch.sort(experts, dim=-1).values)
+        return gates, experts
+
+    def logged(name, step):
+        def run():
+            current[0] = logs[name]
+            try:
+                return step()
+            finally:
+                current[0] = None
+        return run
+    for name, eng in engines.items():
+        eng.step = logged(name, eng.step)
+    torch.cuda.reset_peak_memory_stats()
+    k4.launches = 0
+    moe.route = recording
+    try:
+        t0 = time.perf_counter()
+        res = launch.lockstep(list(engines.values()), prompts, max_new=MOE_MAX_NEW,
+                              compare=lambda got, want: bf16_agreement(torch, got, want))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        moe.route = route
+    launches = k4.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist_p, hist_k = res["comp_len"]
+    kern = engines["kernel"]
+    swaps = [sum(1 for a, b in zip([[0] * kern.slots] + hist_k, hist_k) if b[s] > a[s])
+             for s in range(kern.slots)]
+    corr = min(c for c, _ in res["compared"])
+    excess = max(e for _, e in res["compared"])
+    off = next((i for i, (c, e) in enumerate(res["compared"])
+                if not (c > 0.9999 and e <= BF16_EXCESS)), None)
+    alike, total, first = routes_alike(logs)
+    n_pre = MOE_REQUESTS * n_layers          # the admissions' layer calls come first
+    dec_alike, dec_total, _ = routes_alike({k: v[n_pre:] for k, v in logs.items()})
+    del logs
+    print(f"[moe] 14d bf16 lockstep of the kernel and plain engines ({n_layers} "
+          f"layers, {MOE_REQUESTS} prompts of {MOE_PROMPT_LEN}, {MOE_MAX_NEW} new, "
+          f"{MOE_ENGINE_KW}): {res['steps']} decode steps in {wall:.1f} s; worst "
+          f"excess over 2 own ulps {excess:.2f} ulp at the median |logit| (<= "
+          f"{BF16_EXCESS}), least correlation {corr:.7f} (> 0.9999), first step off "
+          f"the gate {off}; kernel 4 launches {launches} = {res['steps']} x {n_layers}: "
+          f"{launches == res['steps'] * n_layers}; comp_len equal {hist_p == hist_k}; "
+          f"swaps per slot {swaps}; peak memory {peak:.2f} GiB [{card}]")
+    print(f"[moe] 14d routed expert sets chosen alike by the two paths: {alike} of "
+          f"{total} (token, layer) sets ({100 * alike / total:.3f} %), "
+          f"{dec_alike} of {dec_total} in the decode steps "
+          f"({100 * dec_alike / dec_total:.3f} %); first layer call that differs "
+          f"{first} (layer {None if first is None else first % n_layers}) [{card}]")
+    check(launches == res["steps"] * n_layers,
+          f"14d: fdec launches {launches} != {res['steps']} x {n_layers}")
+    check(hist_p == hist_k, "14d: comp_len histories differ between the engines")
+    check(min(swaps) >= 1, f"14d: a slot never compressed: {swaps}")
+    check(corr > 0.9999 and excess <= BF16_EXCESS,
+          f"14d: the engines diverge (excess {excess:.2f}, correlation {corr:.7f})")
+    out["14d"] = {"steps": res["steps"], "launches": launches, "excess": excess,
+                  "corr": corr, "routes_alike": [alike, total],
+                  "decode_routes_alike": [dec_alike, dec_total], "peak_gib": peak,
+                  "seconds": wall}
+
+    # kernel 4 at the kernel engine's final state (layer 0), then kernel 3
+    # at 14a's shape: each against its plain version, then timed
+    wp = int(max(kern.pos)) - 1                     # the last decode step's clock
+    kc, vc = kern.cache["scan"][0]["k"][0], kern.cache["scan"][0]["v"][0]
+    f = {n: w[0] for n, w in kern.kv_fact["scan"][0].items()}
+    comp = torch.as_tensor(kern._kv_comp_len, device=dev)
+    qd = torch.randn((kern.slots, 1, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    args = (qd, kc, vc, f["k_us"], f["k_vt"], f["v_us"], f["v_vt"], comp)
+    got = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5)
+    want = k4.factored_decode_plain(*args, wp, scale=hd ** -0.5)
+    err4 = (got.float() - want.float()).abs().max().item()
+    print(f"[kernels] factored_decode {cfg.name} 14d state ({kern.slots}, "
+          f"{kc.shape[1]}, {kvh}, {hd}) G {h // kvh} r={f['k_us'].shape[-1]} "
+          f"write_pos={wp} comp_len={[int(c) for c in comp.tolist()]}: "
+          f"max|kernel-plain| {err4:.3e} (tol 1e-2)")
+    check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+          "factored_decode at 14d's state disagrees with plain")
+    state = fdec_state_times(torch, dev, f"{cfg.name} 14d state", args, wp, hd, 0.0, card)
+    state["max_abs_err"] = err4
+    out["fdec_state"] = state
+    del engines, kern, kc, vc, f, args, got, want, res
+    torch.cuda.empty_cache()
+    sub["14d"] = time.perf_counter() - t_sub
+
+    q, k, v = (torch.randn((1, MOE_PREFILL_SEQ, n, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for n in (h, kvh, kvh))
+    got = k3.flash_attention(q, k, v, causal=True)
+    want = k3.flash_attention_plain(q, k, v, causal=True)
+    err3 = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    print(f"[kernels] flash_attention {cfg.name} (1, {MOE_PREFILL_SEQ}, {h}|{kvh}, "
+          f"{hd}) G {h // kvh} bf16 causal: max|kernel-plain| {err3:.3e} (rtol 2e-2, "
+          f"atol 3e-2); largest row ||kernel-plain||/||plain|| {rel:.3e} (bound "
+          f"{FLASH_ROW_REL['bfloat16']})")
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+          and rel <= FLASH_ROW_REL["bfloat16"],
+          "flash_attention at the MoE prefill shape disagrees with plain")
+    del q, k, v, got, want
+    t_k3, t_p3, t_l3, b3, by3 = flash_times(torch, gen, f"{cfg.name} ", h, kvh, hd,
+                                            MOE_PREFILL_SEQ, card)
+    out["flash"] = {"shape": [1, MOE_PREFILL_SEQ, h, kvh, hd], "max_abs_err": err3,
+                    "ms": t_k3, "plain_ms": t_p3, "library_ms": t_l3,
+                    "bound_ms": b3, "bound_by": by3}
+
+    # -- 14e: the scheduler on the kernel path -----------------------------
+    t_sub = time.perf_counter()
+    trace = cell_trace(MOE_SCHED, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    k4.launches = 0
+    res = launch.run_scheduler(kcfg, weights, trace,
+                               prefill_chunk=MOE_SCHED["prefill_chunk"],
+                               max_queue=MOE_SCHED["max_queue"], device=dev,
+                               **MOE_ENGINE_KW)
+    launches = k4.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ, kinds = res["summary"], res["step_kinds"]
+    acct = summ["accounting"]
+    decode_calls = sum(d for _, d in kinds)
+    single = sum(p for p, _ in kinds)
+    dec = sorted(t for t, (p, d) in zip(res["step_ms"], kinds) if d and not p)
+    pre = sorted(t for t, (p, d) in zip(res["step_ms"], kinds) if p)
+    sch = res["scheduler"]
+    print(f"[moe] 14e scheduler, kernel path, {MOE_ENGINE_KW['slots']} slots x "
+          f"{MOE_ENGINE_KW['max_seq']} rows, rank {MOE_ENGINE_KW['kv_sketch_rank']} "
+          f"swapping every {int(MOE_ENGINE_KW['kv_compress_ratio'] * MOE_ENGINE_KW['kv_sketch_rank'])} "
+          f"rows, prefill_chunk {MOE_SCHED['prefill_chunk']}; trace {MOE_SCHED['trace']}: "
+          f"{res['tokens']} tokens in {res['seconds']:.2f} s wall "
+          f"({res['tokens_per_s']:.1f} tok/s); {res['steps']} scheduler steps, "
+          f"{single} single-slot prefill and catch-up calls, "
+          f"{decode_calls} batched decode steps (median decode-only step "
+          f"{dec[len(dec) // 2] if dec else float('nan'):.2f} ms over {len(dec)}), "
+          f"median step with prefill work {pre[len(pre) // 2] if pre else float('nan'):.2f} "
+          f"ms over {len(pre)}; kernel 4 launches {launches} = {decode_calls} x "
+          f"{n_layers}: {launches == decode_calls * n_layers}; peak memory {peak:.2f} "
+          f"GiB; largest pos {int(sch.model.pos.max())}, largest comp_len "
+          f"{int(sch.model._kv_comp_len.max())}; accounting {acct} [{card}]")
+    print(f"[moe] 14e virtual clock: TTFT p50 / p99 {summ['ttft_p50_s']:.4f} / "
+          f"{summ['ttft_p99_s']:.4f} s, TPOT p50 / p99 {summ['tpot_p50_s']:.5f} / "
+          f"{summ['tpot_p99_s']:.5f} s, latency p50 / p99 {summ['latency_p50_s']:.4f} / "
+          f"{summ['latency_p99_s']:.4f} s, {summ['tokens_per_s']:.1f} tok/s, "
+          f"concurrency max {summ['concurrency_max']}")
+    check(acct["unaccounted"] == 0 and acct["in_flight"] == 0
+          and acct["completed"] + acct["rejected"] == len(trace),
+          f"14e: requests not accounted: {acct}")
+    check(decode_calls > 0 and launches == decode_calls * n_layers,
+          f"14e: kernel 4 launches {launches} != {decode_calls} x {n_layers}")
+    check(all(0 < len(r.out) <= r.max_new for r in sch.finished),
+          "14e: a finished request has no output or too much")
+    # one batched decode step of every slot on the drained model, traced
+    m = sch.model
+    clock = min(int(m.pos.max()), m.max_seq - 1)
+    wall_t, busy, top = device_breakdown(torch, lambda: m.sample(m.decode_logits(
+        [[0]] * m.slots, clock, slot_mask=[True] * m.slots)))
+    fdec = sum(v for k, v in top if "fdec" in k)
+    mc = cfg.moe
+    expert_bytes = 3 * mc.num_experts * cfg.d_model * mc.d_expert * 2 * n_layers
+    print(f"[profile] 14e one decode step of all {m.slots} slots after the drain: "
+          f"wall {wall_t:.3f} ms (traced), device kernels {busy:.3f} ms (busy "
+          f"{100 * busy / wall_t:.0f}%); kernel 4 (fdec, {n_layers} launches) "
+          f"{fdec:.3f} ms; the (E, C, D) expert products read all "
+          f"{expert_bytes / 1e9:.2f} GB of expert weights a step, "
+          f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms at the memory rate; top: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:6]) + f" [{card}]")
+    out["14e"] = {"launches": launches, "tokens": res["tokens"],
+                  "seconds": res["seconds"], "steps": res["steps"],
+                  "single_slot_calls": single, "decode_steps": decode_calls,
+                  "peak_gib": peak, "summary": summ,
+                  "traced_decode": {"wall_ms": wall_t, "device_ms": busy,
+                                    "fdec_ms": fdec}}
+    del res, sch, m, weights
+    torch.cuda.empty_cache()
+    sub["14e"] = time.perf_counter() - t_sub
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[moe] phase 14 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sub.items())
+          + f"); kernel 3 launches in 14a's prefill {out['14a']['launches']}, kernel 4 "
+          f"in 14d's lockstep {out['14d']['launches']} and 14e's scheduler "
+          f"{out['14e']['launches']} (counts set to 0 before each run)")
+    check(out["seconds"] <= PHASE14_LIMIT_S,
+          f"phase 14 took {out['seconds']:.1f} s > {PHASE14_LIMIT_S} s")
     return out
 
 
@@ -3335,6 +3719,11 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     sched13 = phase13_scheduler(torch, dev, card)
 
+    # -- 14. routed-MoE serving: qwen3-moe-30b-a3b (61 GB of weights) -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe14 = phase14_moe(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -3377,7 +3766,9 @@ def run(torch) -> int:
                     "max_abs_err": errs5[("flash", "prefill")], "ms": t_k,
                     "plain_ms": t_p, "bound_ms": t_b, "bound_by": by,
                     "library_ms": t_l, "autotuned": None,
-                    "distributed_launches": 0})
+                    "distributed_launches": 0,
+                    "moe": {"arch": MOE_ARCH, "launches": {"14a": moe14["14a"]["launches"]},
+                            **moe14["flash"]}})
     fdec = times8["factored_decode"]["per_state"]
     kernels.append({"name": "factored_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/factored_decode.cu",
@@ -3388,10 +3779,13 @@ def run(torch) -> int:
                     "plain_ms": fdec[0]["plain_ms"],
                     "bound_ms": fdec[0]["bound_ms"],
                     "bound_by": fdec[0]["bound_by"], "library_ms": None,
-                    "per_state": fdec + sched13["fdec_per_state"],
+                    "per_state": (fdec + sched13["fdec_per_state"]
+                                  + [moe14["fdec_state"]]),
                     "autotuned": tune11["factored_decode"],
                     "distributed_launches": 0,
-                    "scheduler_launches": sched13["scheduler_launches"]})
+                    "scheduler_launches": sched13["scheduler_launches"],
+                    "moe_launches": {"14d": moe14["14d"]["launches"],
+                                     "14e": moe14["14e"]["launches"]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

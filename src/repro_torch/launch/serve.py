@@ -6,6 +6,7 @@ batching scheduler driven by a seeded Poisson trace.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch gemma2-2b --arrival-rate 50 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
 
 With ``--arrival-rate`` (or ``--load-trace``) the launcher drives the
 scheduler (``serve/scheduler.py``): seeded arrivals from
@@ -42,10 +43,15 @@ from repro_torch.serve.model_step import ModelStep
 from repro_torch.serve.scheduler import Scheduler
 
 
-def init_weights(cfg: ModelCfg, *, seed: int = 0, device=None) -> dict:
-    """Random f32 master weights at the schema's scales, from ``seed``."""
+def init_weights(cfg: ModelCfg, *, seed: int = 0, device=None,
+                 compute_dtype: bool = False) -> dict:
+    """Random f32 master weights at the schema's scales, from ``seed``; with
+    ``compute_dtype`` drawn straight into the activation dtype instead
+    (``transformer.init_params``), which serving an MoE configuration needs:
+    qwen3-moe-30b-a3b's f32 masters (122 GB) do not fit one card."""
     dev = resolve_device(device)
-    return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         compute_dtype=compute_dtype)
 
 
 def make_prompts(n: int, length: int, vocab: int, *, seed: int = 1) -> list[list[int]]:
@@ -236,7 +242,8 @@ def main(argv=None) -> None:
         cfg = smoke_config(cfg)
     cfg = cfg.with_(use_flash_kernel=True)    # wrappers pick by device
     dev = resolve_device(args.device)
-    params = init_weights(cfg, seed=args.seed, device=dev)
+    params = init_weights(cfg, seed=args.seed, device=dev,
+                          compute_dtype=cfg.moe is not None)
     model_kw = dict(slots=args.slots, max_seq=args.max_seq,
                     temperature=args.temperature, kv_sketch_rank=args.kv_rank,
                     kv_compress_ratio=args.kv_compress_ratio)

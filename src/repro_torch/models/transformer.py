@@ -1,5 +1,6 @@
 """Pattern-stacked transformer: schema, init, forward (port of
-``repro/models/transformer.py``, the dense attention + MLP path).
+``repro/models/transformer.py``, its attention layers with the dense MLP
+or the routed experts).
 
 Params are a flat dict ``{"path/like/this": tensor}`` with the reference's
 names and layouts, so ``convert.params_from_reference`` is a dtype
@@ -16,8 +17,8 @@ scan leaves stacked over periods.  Decode writes the new token's k/v into
 the cache IN PLACE (write-then-attend) and returns the same cache object;
 the reference returns an updated copy.
 
-Served and trained here: ``mixer="attn"`` with ``ffn="mlp"``, full-context
-or windowed prefill, full-context decode with or without the factored
+Served and trained here: ``mixer="attn"`` with ``ffn="mlp"`` or the routed
+experts ``ffn="moe"`` (``models/moe.py``), full-context or windowed prefill, full-context decode with or without the factored
 prefix, windowed decode and chunked prefill over a ring-buffer cache, and
 the single-card training loss (``cross_entropy``, ``loss_fn``;
 autograd runs through the forward, which never writes a tensor autograd
@@ -38,10 +39,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 _NOT_PORTED = {
     "mla": "MLA (ROADMAP Queue 1 item 16c)",
-    "moe": "MoE (ROADMAP Queue 1 item 16d)",
     "rglru": "recurrent mixers (ROADMAP Queue 1 item 16e)",
     "mlstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
     "slstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
@@ -81,8 +82,6 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
     s_out = 0.02 / math.sqrt(2 * cfg.n_layers)
     if spec.mixer != "attn":
         raise not_ported(spec.mixer)
-    if spec.ffn == "moe":
-        raise not_ported("moe")
     if spec.cross_attn:
         raise not_ported("cross_attn")
     defs: dict[str, ParamDef] = {}
@@ -107,6 +106,18 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
         defs["mlp/w_gate"] = ParamDef((D, F), s_in)
         defs["mlp/w_up"] = ParamDef((D, F), s_in)
         defs["mlp/w_down"] = ParamDef((F, D), s_out)
+    elif spec.ffn == "moe":
+        mc = cfg.moe
+        E = mc.num_experts
+        defs["moe/router"] = ParamDef((D, E), s_in)
+        defs["moe/w_gate"] = ParamDef((E, D, mc.d_expert), s_in)
+        defs["moe/w_up"] = ParamDef((E, D, mc.d_expert), s_in)
+        defs["moe/w_down"] = ParamDef((E, mc.d_expert, D), s_out)
+        if mc.num_shared:
+            Fs = mc.d_shared or mc.d_expert * mc.num_shared
+            defs["moe/shared/w_gate"] = ParamDef((D, Fs), s_in)
+            defs["moe/shared/w_up"] = ParamDef((D, Fs), s_in)
+            defs["moe/shared/w_down"] = ParamDef((Fs, D), s_out)
     return defs
 
 
@@ -136,17 +147,43 @@ def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
     return defs
 
 
-def init_params(cfg: ModelCfg, gen: torch.Generator) -> dict[str, torch.Tensor]:
+def keeps_f32(name: str, ndim: int) -> bool:
+    """Leaves the compute cast leaves f32: those under 2-D (the unstacked
+    norm scales) and the MoE router, with which the reference's
+    ``moe_block`` routes in f32."""
+    return ndim < 2 or name.endswith("moe/router")
+
+
+def init_params(cfg: ModelCfg, gen: torch.Generator, *,
+                compute_dtype: bool = False) -> dict[str, torch.Tensor]:
     """Random weights at the schema's scales, drawn from ``gen`` on its
     device (names in sorted order, one normal draw each).  The reference
     draws from ``jax.random``; tests load its weights through
-    ``convert.params_from_reference`` instead."""
+    ``convert.params_from_reference`` instead.
+
+    ``compute_dtype`` draws every random leaf that
+    ``cast_params_for_compute`` would cast straight into the activation
+    dtype, one leading-period slice of a stacked leaf at a time (an f32
+    draw of one slice, scaled and cast), so no f32 copy of a whole leaf or
+    of the model exists: the f32 masters of qwen3-moe-30b-a3b are 122 GB,
+    and one stacked expert leaf a 38.6 GB f32 draw.  The router and the
+    zero-initialised leaves (norm scales, biases) stay f32.  These are
+    other numbers than the f32 masters' draw from the same generator."""
     dtype = getattr(torch, cfg.param_dtype)
+    act = _act_dtype(cfg)
     dev = gen.device
     params = {}
     for name, d in sorted(schema(cfg).items()):
         if d.scale == 0.0:
             params[name] = torch.zeros(d.shape, dtype=dtype, device=dev)
+        elif (compute_dtype and dtype == torch.float32
+              and not keeps_f32(name, len(d.shape))):
+            w = torch.empty(d.shape, dtype=act, device=dev)
+            for part in (w if name.startswith("layers/") else w[None]):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       dtype=torch.float32,
+                                       device=dev).mul_(d.scale))
+            params[name] = w
         else:
             w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                             device=dev)
@@ -158,15 +195,30 @@ def param_count(cfg: ModelCfg) -> int:
     return sum(math.prod(d.shape) for d in schema(cfg).values())
 
 
+def active_param_count(cfg: ModelCfg) -> int:
+    """Active params per token (MoE: top_k of num_experts experts)."""
+    total = 0
+    for name, d in schema(cfg).items():
+        n = math.prod(d.shape)
+        if cfg.moe and "/moe/w_" in name and "shared" not in name:
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total
+
+
 def cast_params_for_compute(cfg: ModelCfg, params: dict) -> dict:
-    """Cast the >= 2-D f32 masters to the activation dtype; norm scales stay
-    f32.  The reference casts inside every step; the port's serving entry
-    points cast once at load (the numbers are the same), after which this
-    returns the tensors it is given.  The cast is differentiable: the train
+    """Cast the f32 masters to the activation dtype, all but the
+    ``keeps_f32`` leaves (norm scales, the MoE router).  The reference casts
+    inside every step; the port's serving entry points cast once at load
+    (the numbers are the same), after which this returns the tensors it is
+    given.  (The reference's cast rounds the router to bf16 too, so its
+    registry steps route on a bf16 router; its ``moe_block`` routes in f32
+    and the port keeps the router f32 everywhere.)  The cast is differentiable: the train
     step's gradients reach the f32 masters through it, the bf16 cotangent
     cast to f32 as in the reference."""
     dt = getattr(torch, cfg.activation_dtype)
-    return {k: (w.to(dt) if w.dtype == torch.float32 and w.ndim >= 2 else w)
+    return {k: (w.to(dt) if w.dtype == torch.float32
+                and not keeps_f32(k, w.ndim) else w)
             for k, w in params.items()}
 
 
@@ -189,7 +241,7 @@ def _act_dtype(cfg):
 def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                 positions, rope, cache, write_pos, return_cache: bool,
                 causal: bool = True, factors=None, comp_len=None):
-    """Residual block: norm -> attention -> (+) [norm -> mlp -> (+)].
+    """Residual block: norm -> attention -> (+) [norm -> mlp/moe -> (+)].
     ``rope`` is the (cos, sin) of ``positions`` (None without RoPE).
     Returns (x, new_cache_dict_or_None)."""
     if spec.mixer != "attn":
@@ -208,17 +260,22 @@ def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
     new_cache = {"k": kv.k, "v": kv.v} if kv is not None else None
     if cfg.post_norms:
         mix = L.apply_norm(cfg, p, "norm1_post", mix)
-    if spec.ffn == "moe":
-        raise not_ported("moe")
     if cfg.parallel_block and spec.ffn != "none":
-        return x + (L.mlp_block(cfg, p, h) + mix), new_cache
+        return x + (_ffn(cfg, spec, p, h) + mix), new_cache
     x = x + mix
     if spec.ffn != "none":
-        ff = L.mlp_block(cfg, p, L.apply_norm(cfg, p, "norm2", x))
+        ff = _ffn(cfg, spec, p, L.apply_norm(cfg, p, "norm2", x))
         if cfg.post_norms:
             ff = L.apply_norm(cfg, p, "norm2_post", ff)
         x = x + ff
     return x, new_cache
+
+
+def _ffn(cfg, spec, p, h):
+    """The layer's feed-forward block: the gated MLP or the routed experts."""
+    if spec.ffn == "moe":
+        return moe_mod.moe_block(cfg, p, h)
+    return L.mlp_block(cfg, p, h)
 
 
 def _attn_with_cache(cfg, spec, p, h, *, positions, rope, cache, write_pos,

@@ -14,7 +14,13 @@ Differences from the reference, none of which changes the arithmetic:
   * a slot's prefill runs one serve step over the whole chunk on that
     slot's batch row alone (views into the pool), where the reference scans
     single-token steps over every slot and masks the other slots' writes
-    out: the same arithmetic, summed in another order;
+    out: the same arithmetic, summed in another order.  For a routed-MoE
+    config the reference's steps route ``slots`` tokens at a time, the
+    chunk's token broadcast to every slot: while their capacity holds every
+    pair (``slots <= 8``) nothing drops, and the chunk runs as one step with
+    a dropless capacity (``moe.dropless``); past that, which of the slot's
+    pairs drop depends on how the other slots route, and the pool runs
+    token by token as the reference does (``_prefill_pool``);
   * the weights are cast to the activation dtype once, at construction.
 Windowed (ring) cache leaves keep rolling sketches whose ring mirrors the
 cache ring (``kv_compress.kv_rolling_*``); only full-context k/v leaves swap
@@ -41,6 +47,7 @@ from repro_torch.convert import key_from_seed
 from repro_torch.device import resolve_device
 from repro_torch.kernels import shgemm_fused as _lattice
 from repro_torch.models import cache as cache_mod
+from repro_torch.models import moe
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
 from repro_torch.serve import kv_compress
@@ -73,6 +80,17 @@ class ModelStep:
         self.pos = np.zeros(slots, np.int32)       # next write position
         self.last_logits: Optional[torch.Tensor] = None
         self._serve = R.make_serve_step(cfg)
+        # a chunk of one slot runs as one step unless the pool's MoE
+        # capacity drops pairs (see the module docstring)
+        self._chunk_serve = self._serve
+        self._pool_prefill = False
+        if cfg.moe is not None:
+            m = cfg.moe
+            if moe.capacity(slots, m.num_experts, m.top_k,
+                            m.capacity_factor) >= slots:
+                self._chunk_serve = R.make_serve_step(moe.dropless(cfg))
+            else:
+                self._pool_prefill = True
         self.kv_sketch_rank = kv_sketch_rank
         self._kv_key = key_from_seed(kv_sketch_seed)
         linear_paths, ring_paths = self._find_kv_paths()
@@ -438,13 +456,28 @@ class ModelStep:
     def _prefill_slot(self, slot: int, tokens, start: int) -> torch.Tensor:
         """Run the chunk ``tokens`` through one serve step on ``slot``'s batch
         row: its k/v land in cache rows [start, start + len) in place and the
-        chunk attends causally over the rows up to each token.  Returns the
-        (vocab,) f32 logits after the last token."""
+        chunk attends causally over the rows up to each token (an MoE pool
+        whose capacity drops pairs runs ``_prefill_pool`` instead).  Returns
+        the (vocab,) f32 logits after the last token."""
+        if self._pool_prefill:
+            return self._prefill_pool(slot, tokens, start)
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
-        logits, _ = self._serve(self.params, {
+        logits, _ = self._chunk_serve(self.params, {
             "tokens": toks.reshape(1, -1), "cache": self._slot_cache(slot),
             "write_pos": start})
         return logits[0]
+
+    def _prefill_pool(self, slot: int, tokens, start: int) -> torch.Tensor:
+        """The reference's slot prefill: one serve step a token over the
+        whole pool, the token broadcast to every slot, only ``slot``'s cache
+        rows kept.  Returns ``slot``'s (vocab,) f32 logits after the last
+        token."""
+        mask = np.arange(self.slots) == slot
+        for i, tok in enumerate(np.asarray(tokens, np.int64).tolist()):
+            logits = self._masked_step({
+                "tokens": torch.full((self.slots, 1), tok, device=self.device),
+                "cache": self.cache, "write_pos": start + i}, mask)
+        return logits[slot]
 
     def prefill_rows(self, slot: int, tokens, start: int) -> torch.Tensor:
         """Write cache rows [start, start + len(tokens)) for ``slot`` only
@@ -486,20 +519,27 @@ class ModelStep:
             batch["kv_factors"] = self.kv_fact
             batch["comp_len"] = torch.as_tensor(self._kv_comp_len,
                                                 device=self.device)
-        keep = None
-        if slot_mask is not None:
-            off = torch.as_tensor(~np.asarray(slot_mask, bool),
-                                  device=self.device)
-            keep = [(group, leaf, self._clock_rows(group, leaf, wp).clone())
-                    for group, leaf in self._attn_leaves()]
-        logits, _ = self._serve(self.params, batch)
-        if keep is not None:
-            for group, leaf, old in keep:
-                rows = self._clock_rows(group, leaf, wp)
-                rows.copy_(torch.where(off.reshape(
-                    (1, -1) if group == "scan" else (-1,))[..., None, None],
-                    old, rows))
+        if slot_mask is None:
+            logits, _ = self._serve(self.params, batch)
+        else:
+            logits = self._masked_step(batch, slot_mask)
         self.last_logits = logits
+        return logits
+
+    def _masked_step(self, batch: dict, slot_mask) -> torch.Tensor:
+        """One serve step over the pool at ``batch["write_pos"]`` whose cache
+        writes survive only for the slots in the (slots,) bool mask: the
+        other slots' rows at that clock are restored."""
+        wp = batch["write_pos"]
+        off = torch.as_tensor(~np.asarray(slot_mask, bool), device=self.device)
+        keep = [(group, leaf, self._clock_rows(group, leaf, wp).clone())
+                for group, leaf in self._attn_leaves()]
+        logits, _ = self._serve(self.params, batch)
+        for group, leaf, old in keep:
+            rows = self._clock_rows(group, leaf, wp)
+            rows.copy_(torch.where(off.reshape(
+                (1, -1) if group == "scan" else (-1,))[..., None, None],
+                old, rows))
         return logits
 
     @staticmethod

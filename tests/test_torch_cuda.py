@@ -941,3 +941,29 @@ def test_train_step_on_card_matches_cpu(gen, optimizer):
         torch.testing.assert_close(out["cuda"][0][k].cpu(), v, rtol=0, atol=1e-5)
     if optimizer == "galore":
         assert k2.launches > before
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_moe_block_on_card_matches_cpu(gen, act):
+    """The smoke qwen3-moe layer's routed experts (64 tokens, capacity 20:
+    pairs drop) on the card against the CPU: equal routed sets, outputs at
+    rtol 1e-5 / atol 1e-6 in f32 and 2e-2 / 2e-3 in bf16, and two card
+    calls bit for bit (the combine adds in a fixed order, no atomics)."""
+    from repro_torch.models import moe
+    cfg = smoke_config(R.get_arch("qwen3-moe-30b-a3b")).with_(activation_dtype=act)
+    dt = getattr(torch, act)
+    p = {k[len("layers/p0/"):]: v[0]
+         for k, v in launch.init_weights(cfg, seed=0, device="cpu").items()
+         if k.startswith("layers/p0/moe/")}
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    x = (x * 8).to(dt)                    # decisive routing at init's scale
+    want = moe.moe_block(cfg, p, x)
+    pc = {k: v.cuda() for k, v in p.items()}
+    got = moe.moe_block(cfg, pc, x.cuda())
+    assert torch.equal(moe.moe_block(cfg, pc, x.cuda()), got)
+    sets = [torch.sort(moe.route(cfg, x.to(d).reshape(-1, cfg.d_model).float()
+                                 @ p["moe/router"].to(d))[1], -1).values.cpu()
+            for d in ("cpu", "cuda")]
+    assert torch.equal(sets[0], sets[1])
+    tol = dict(rtol=1e-5, atol=1e-6) if act == "float32" else dict(rtol=2e-2, atol=2e-3)
+    torch.testing.assert_close(got.cpu(), want, **tol)

@@ -99,6 +99,21 @@ def test_scheduler_slice_modules_import_without_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+def test_moe_module_imports_without_jax():
+    """The routed experts' module and the transformer that reaches it, each
+    imported alone in a fresh interpreter, load no jax and nothing of the
+    reference."""
+    for module in ("repro_torch.models.moe", "repro_torch.models.transformer"):
+        code = (f"import sys\n"
+                f"import {module}\n"
+                f"assert 'jax' not in sys.modules\n"
+                f"assert not any(n.split('.')[0] == 'repro' for n in sys.modules)\n")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, cwd=REPO, timeout=120,
+                             env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+        assert out.returncode == 0, (module, out.stderr)
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse(path.read_text())
@@ -127,6 +142,7 @@ _SMALL_RSVD = dataclasses.replace(PAPER_RSVD, n=16, rank=2)
 _SMALL_HOSVD = dataclasses.replace(PAPER_HOSVD, dims=(4, 4, 4), ranks=(2, 2, 2))
 _SMOKE = smoke_config(R.get_arch("qwen3-0.6b"))
 _SMOKE_PARAMS = launch.init_weights(_SMOKE, device="cpu")
+_SMOKE_MOE = smoke_config(R.get_arch("qwen3-moe-30b-a3b"))
 ENTRY_POINTS = {
     "resolve_device": lambda **d: resolve_device(**d),
     "ops.shgemm": lambda **d: ops.shgemm(_A, torch.ones((3, 2)), **d),
@@ -190,6 +206,13 @@ ENTRY_POINTS = {
     "launch.serve": lambda **d: launch.main(
         ["--smoke", "--arrival-rate", "100", "--requests", "1", "--slots", "1",
          "--max-seq", "16"] + (["--device", d["device"]] if d else [])),
+    "init_weights moe": lambda **d: launch.init_weights(_SMOKE_MOE,
+                                                        compute_dtype=True, **d),
+    "launch.serve moe": lambda **d: launch.main(
+        ["--smoke", "--arch", "qwen3-moe-30b-a3b", "--requests", "1",
+         "--slots", "1", "--max-seq", "16", "--prompt-len", "4",
+         "--max-new", "2", "--kv-rank", "4"]
+        + (["--device", d["device"]] if d else [])),
     "launch.train": lambda **d: launch_train.main(
         ["--smoke", "--steps", "1", "--seq", "8", "--global-batch", "2",
          "--ckpt-dir", tempfile.mkdtemp()]

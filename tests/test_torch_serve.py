@@ -14,7 +14,10 @@ paths, strictly smaller compressed bytes, and the bounded queue.
 The other dense archs the port serves (gemma2 with its windowed ring layers,
 codeqwen1.5, command-r-plus) run the model step's chunked prefill and masked
 decode against the reference's at the qwen3 test's 1e-4, and gemma2 the f32
-engine lockstep past its 16-row window, compressed."""
+engine lockstep past its 16-row window, compressed.  The routed-MoE arch
+(qwen3-moe) holds chunked prefill to the reference's token-by-token prefill
+over the pool at 8 slots (dropless) and at 16 (the pool's capacity drops
+pairs), and its f32 engine lockstep, compressed."""
 
 import math
 
@@ -162,6 +165,82 @@ def test_engine_matches_reference_gemma2():
     diffs, _ = _lockstep(ref, port, max_new=30, steps=40)
     assert max(diffs) < 1e-1, max(diffs)
     assert max(port.pos) > 16 and (port._kv_comp_len > 0).any()
+
+
+# -- the routed-MoE arch (qwen3-moe) ------------------------------------------
+
+MOE = "qwen3-moe-30b-a3b"
+
+
+def _moe_pair():
+    """The f32 smoke qwen3-moe pair with the MoE leaves (router and experts)
+    scaled by 20: at the init scale the routed experts barely move the
+    residual stream, and a dropped pair would change the logits by ~1e-6."""
+    ref_cfg, cfg, ref_params, _ = _pair("float32", MOE)
+    ref_params = {k: (20 * v if "/moe/" in k else v) for k, v in ref_params.items()}
+    params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
+                                   cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+@pytest.fixture(scope="module")
+def moe_ref_prefill():
+    """The reference's slot prefill token by token, 40 tokens into slot 5
+    of 8 and into slot 9 of 16 (slot 0 holding 12 rows of its own): the
+    logits after each token and the model step."""
+    ref_cfg, cfg, ref_params, params = _moe_pair()
+    tok = np.random.default_rng(5).integers(1, cfg.vocab, 52).tolist()
+    out = {}
+    for slots, slot in ((8, 5), (16, 9)):
+        ref = RefModelStep(ref_cfg, ref_params, slots=slots, max_seq=48)
+        ref.prefill_rows(0, tok[40:], 0)
+        out[slots] = (slot, [np.asarray(ref.prefill_rows(slot, [t], i))
+                             for i, t in enumerate(tok[:40])], ref)
+    return cfg, params, tok, out
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 16, 40])
+@pytest.mark.parametrize("slots", [8, 16])
+def test_moe_prefill_rows_chunks_match_reference_token_by_token(
+        moe_ref_prefill, slots, chunk):
+    """Chunked prefill_rows against the reference's token-by-token prefill
+    over the pool: logits at each chunk's end within 1e-4, every cache leaf
+    within 1e-5.  At 8 slots the pool's capacity (8) holds every pair and a
+    chunk runs as one dropless step; at 16 it is 8 of 16 tokens, slot 9's
+    pairs drop as the other slots route, and the port runs the pool token by
+    token: a lone slot prefilled without drops misses the reference's
+    logits."""
+    cfg, params, tok, out = moe_ref_prefill
+    slot, want, ref = out[slots]
+    port = ModelStep(cfg, params, slots=slots, max_seq=48, device="cpu")
+    port.prefill_rows(0, tok[40:], 0)
+    for start in range(0, 40, chunk):
+        end = min(start + chunk, 40)
+        got = port.prefill_rows(slot, tok[start:end], start).numpy()
+        np.testing.assert_allclose(got, want[end - 1], rtol=1e-4, atol=1e-4)
+    for group in ("pre", "scan", "rem"):
+        for layer, ref_layer in zip(port.cache[group] or (), ref.cache[group] or ()):
+            for name in layer:
+                np.testing.assert_allclose(layer[name].float().numpy(),
+                                           np.asarray(ref_layer[name], np.float32),
+                                           rtol=1e-2, atol=1e-2)
+    assert list(port.pos) == list(ref.pos)
+    lone = ModelStep(cfg, params, slots=1, max_seq=48, device="cpu")
+    alone = lone.prefill_rows(0, tok[:40], 0).numpy()
+    differs = np.abs(alone - want[-1]).max() > 1e-4
+    assert differs == (slots > 8)
+
+
+def test_moe_engine_matches_reference_f32():
+    """qwen3-moe's engines in f32 lockstep, compressing at rank ==
+    head_dim: logits within 1e-1, equal comp_len after every step."""
+    ref_cfg, cfg, ref_params, params = _moe_pair()
+    kw = dict(slots=2, max_seq=64, kv_sketch_rank=cfg.head_dim, kv_compress_ratio=1.0)
+    ref = RefEngine(ref_cfg, ref_params, **kw)
+    port = Engine(cfg, params, device="cpu", **kw)
+    diffs, _ = _lockstep(ref, port, max_new=30, steps=40)
+    assert max(diffs) < 1e-1, max(diffs)
+    assert (port._kv_comp_len > 0).all()
 
 
 def _port_engine(**kw):

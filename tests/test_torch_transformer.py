@@ -14,6 +14,9 @@ token-by-token decode past the window, chunked prefill across the ring's
 end (chunks of 1, 5 and 16 rows against the reference's token-by-token
 prefill) and the masked decode at a clock past the window, each within
 1e-4 of the reference's logits and one bf16 ulp of its cache rows.
+The routed-MoE arch (smoke qwen3-moe, f32): forward and ``loss_fn`` at the
+dense bounds, gradients at rtol 1e-4 / atol 1e-6 max|g|, and prefill then
+decode against a full forward and against the reference's steps.
 """
 
 import numpy as np
@@ -187,7 +190,7 @@ def test_grow_cache_pads_kv_rows_only():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-lite-16b", "MLA"), ("qwen3-moe-30b-a3b", "MoE"),
+    ("deepseek-v2-lite-16b", "MLA"),
     ("recurrentgemma-2b", "recurrent"), ("xlstm-350m", "recurrent"),
     ("whisper-large-v3", "enc-dec"), ("llava-next-34b", "VLM")])
 def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
@@ -379,4 +382,83 @@ def test_prefill_then_decode_matches_reference_f32(arch):
     got, _ = R.make_serve_step(cfg)(params, {
         "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
         "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
+
+
+# -- the routed-MoE arch, in f32 activations ---------------------------------
+
+@pytest.fixture(scope="module")
+def moe_f32():
+    return _f32_pair("qwen3-moe-30b-a3b")
+
+
+def test_moe_forward_and_loss_match_reference_f32(moe_f32):
+    """Forward logits (kernel 3's plain version on the CPU) and ``loss_fn``
+    of the two-layer smoke qwen3-moe: 48 tokens, capacity 15, pairs drop."""
+    ref_cfg, cfg, ref_params, params = moe_f32
+    tok = _tokens((2, 24), cfg.vocab, seed=12)
+    want = RT.forward(ref_cfg.with_(use_flash_kernel=True), ref_params,
+                      jnp.asarray(tok)).logits
+    got = T.forward(cfg.with_(use_flash_kernel=True),
+                    T.cast_params_for_compute(cfg, params),
+                    torch.as_tensor(tok).long()).logits
+    np.testing.assert_allclose(_f32(got), _f32(want), **F32_LOGITS)
+    labels = _tokens((2, 24), cfg.vocab, seed=13)
+    labels[1, :4] = -1
+    batch = {"tokens": tok, "labels": labels}
+    want = float(RT.loss_fn(ref_cfg, RT.cast_params_for_compute(ref_cfg, ref_params),
+                            {k: jnp.asarray(v) for k, v in batch.items()}))
+    got = float(T.loss_fn(cfg, T.cast_params_for_compute(cfg, params),
+                          {k: torch.as_tensor(v).long() for k, v in batch.items()}))
+    assert got == pytest.approx(want, rel=3e-7)
+
+
+def test_moe_grads_match_reference_f32(moe_f32):
+    """Gradients of ``loss_fn`` through the cast, every leaf (router and
+    experts included) at rtol 1e-4 with atol 1e-6 * max|g| of its leaf."""
+    ref_cfg, cfg, ref_params, params = moe_f32
+    batch = {"tokens": _tokens((2, 24), cfg.vocab, seed=14),
+             "labels": _tokens((2, 24), cfg.vocab, seed=15)}
+
+    def ref_loss(p):
+        return RT.loss_fn(ref_cfg, RT.cast_params_for_compute(ref_cfg, p),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+    want, want_g = jax.value_and_grad(ref_loss)(ref_params)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = T.loss_fn(cfg, T.cast_params_for_compute(cfg, leaves),
+                     {k: torch.as_tensor(v).long() for k, v in batch.items()})
+    names = sorted(leaves)
+    got_g = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
+    assert float(loss.detach()) == pytest.approx(float(want), rel=1e-5)
+    assert sorted(got_g) == sorted(want_g)
+    for k, g in got_g.items():
+        w = np.asarray(want_g[k])
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=k)
+    assert np.abs(np.asarray(want_g["layers/p0/moe/router"])).max() > 0
+
+
+def test_moe_prefill_then_decode_matches_full_forward(moe_f32):
+    """Prefill S tokens (capacity over B*S), grow the cache by a row and
+    decode one more (B tokens, dropless): the reference's 0.15 and
+    correlation > 0.99 against a full forward over S + 1, and the
+    reference's own three steps within the f32 bound."""
+    ref_cfg, cfg, ref_params, params = moe_f32
+    cfg = cfg.with_(use_flash_kernel=True)
+    b, s = 2, 16
+    tok = _tokens((b, s + 1), cfg.vocab, seed=16)
+    full = R._final_logits(cfg, T.forward(cfg, params,
+                                          torch.as_tensor(tok).long()).logits[:, -1])
+    _, cache = R.make_prefill_step(cfg)(params,
+                                        {"tokens": torch.as_tensor(tok[:, :s]).long()})
+    got, _ = R.make_serve_step(cfg)(params, {
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
+        "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0.15, atol=0.15)
+    assert np.corrcoef(got.numpy().ravel(), full.numpy().ravel())[0, 1] > 0.99
+    _, ref_cache = RR.make_prefill_step(ref_cfg)(ref_params,
+                                                 {"tokens": jnp.asarray(tok[:, :s])})
+    want, _ = RR.make_serve_step(ref_cfg)(ref_params, {
+        "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
+        "write_pos": jnp.asarray(s, jnp.int32)})
     np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
