@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 750–850 s on an H100, the build included).
+(about 850–950 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -120,9 +120,11 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    weights from a seed: (13a) qwen3-0.6b, 8 slots x 2048, rank-32 sketches
    swapping every 64 rows, prefill chunks of 256, a seeded Poisson trace of
    16 requests at 200 req/s (virtual clock), through kernel 4 and through
-   the plain path (the virtual-clock SLO summaries must be equal), then
-   under an hbm_budget that admits 4 streams; (13b) gemma2-2b, 8 slots x
-   8192 (its local layers 4096-row rings that wrap, with rolling sketches;
+   the plain path on the first 4 layers (the virtual-clock SLO summaries
+   must be equal, the HBM gauge in proportion to the swappable layers),
+   then on the first 4 layers under an hbm_budget that admits 4 streams;
+   (13b) gemma2-2b, 8 slots x 8192 (its local layers 4096-row rings that
+   wrap, with rolling sketches;
    its 13 global layers decode through kernel 4 at head_dim 256, G 2,
    softcap 50), chunks of 512, 8 requests with half their prompts past
    4096: wall tokens/s and drain time, the median decode step, one traced
@@ -150,6 +152,25 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    timed beside SDPA and its bound; (14e) the scheduler on the kernel path
    over a seeded trace of 8 requests, every request accounted, the
    virtual-clock SLOs; the phase within 240 s.
+15. MLA serving, deepseek-v2-lite-16b at full width and depth (27 layers: a
+   dense-MLP MLA prelude, then 26 MLA + MoE; kv_lora 512, rope 64; 64
+   experts top-6 + 2 shared; random weights from a seed drawn straight into
+   bf16, the router f32: 31.4 GB), after phase 14's model is freed: (15a) a
+   (1, 4096) ``make_prefill_step`` (MLA materialized, no kernel 3 launch),
+   two calls, peak memory; (15b) grow_cache + one absorbed-latent decode
+   step against a full forward over 4097 (0.15, correlation > 0.99); (15c)
+   a 1024-token prompt through ``prefill_rows`` in one chunk and in chunks
+   of 128 and its first 128 tokens one at a time (8 slots: dropless), held
+   to the bf16 gate, then a 64-token prompt through the 16-slot pool's
+   ``_prefill_pool`` with another slot's live latent rows kept bit for bit;
+   (15d) the scheduler, 8 slots x 4096 with rank-32 latent sketches and no
+   swaps, a seeded trace of 8 requests: every request accounted, sketch
+   high-water == pos, the virtual-clock SLOs, one traced decode step, the
+   latents' bytes against dense K/V, ``kv_compress_ratio=2`` refused; (15e)
+   the serve CLI's engine path (``run_engine``); (15f) one drained slot's
+   latents streamed through kernel 2 (``kv_sketch_init(method=
+   "shgemm_fused")``) in 16-row flushes, bit for bit its one-shot sketch,
+   against the plain version, timed; the phase within 150 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -2569,8 +2590,9 @@ def phase12_training(torch, dev, card) -> dict:
 # Phase 13: open-loop serving through the continuous-batching scheduler.
 # 13a qwen3-0.6b and 13b gemma2-2b at full width and depth (random bf16
 # weights from a seed), each trace run through the kernel path and the plain
-# path; 13a once more under an hbm_budget that admits 4 streams; 13c a
-# rolling sketch through kernel 2.
+# path (its first CUT_LAYERS layers); 13a once more, on its first CUT_LAYERS
+# layers, under an hbm_budget that admits 4 streams; 13c a rolling sketch
+# through kernel 2.
 SCHED_CELLS = {
     "13a": {"arch": "qwen3-0.6b", "prefill_chunk": 256, "max_queue": 64,
             "model": dict(slots=8, max_seq=2048, kv_sketch_rank=32,
@@ -2587,6 +2609,10 @@ SCHED_CELLS = {
 }
 BUDGET_STREAMS = 4         # 13a's capped run ...
 BUDGET_REQUESTS = 8        # ... on the trace's first 8 requests (cut from 16)
+# The plain-path run of each trace and 13a's capped run take the first 4
+# layers: the schedule and the virtual clock do not depend on the depth, and
+# the HBM gauge scales with the swappable layers (PERF.md section 4).
+CUT_LAYERS = 4
 REPLAY_STEPS = 72          # decode steps of the lockstep replay (> one swap)
 ROLL_ROWS, ROLL_COLS, ROLL_WINDOW, ROLL_P = 4096 + 1000, 256, 4096, 40
 ROLL_TILES = (512, 1, 777, 1000, 256, 1500)   # ragged, then the rest
@@ -2636,16 +2662,26 @@ def replay_lockstep(torch, dev, cfg, weights, req, spec, steps: int) -> dict:
             "calls": len(agree), "comp_len": comp, "pos": int(models[0].pos[0])}
 
 
+def swap_layers(cfg, max_seq: int) -> int:
+    """Layers whose k/v a slot can swap to factors: full-context attention
+    (a window of max_seq rows or more holds the whole history)."""
+    return sum(1 for sp in cfg.layer_specs() if sp.mixer == "attn"
+               and (sp.window is None or sp.window >= max_seq))
+
+
 def phase13_cell(torch, dev, card, name: str, spec: dict, *,
                  budget: bool = False):
     """One scheduler cell: the trace through the kernel path (timed, one
     decode step traced, launches and peak memory) and through the plain path
-    (the SLO summaries must be equal), then the lockstep replay of the
-    longest request.  Returns the kernel run's record and its scheduler."""
+    on the first ``CUT_LAYERS`` layers (the SLO summaries must be equal, the
+    HBM gauge in proportion to the swappable layers), then the lockstep
+    replay of the longest request.  Returns the kernel run's record and its
+    scheduler."""
     from repro_torch.kernels import factored_decode as k4
     from repro_torch.launch import serve as launch
     from repro_torch.models import registry as R
     from repro_torch.models import transformer as T
+    from repro_torch.serve.model_step import ModelStep
     from repro_torch.serve.scheduler import Scheduler
     t_cell = time.perf_counter()
     cfg = R.get_arch(spec["arch"])
@@ -2673,11 +2709,13 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
             traced.append(f"{len(live)} slots decoding, in the run")
             traced.extend(device_breakdown(torch, lambda: Scheduler.step(sch)))
     runs = {}
-    for path, c in (("kernel", cfg.with_(use_flash_kernel=True)), ("plain", cfg)):
+    cut_cfg, cut_weights = first_layers(cfg, weights, CUT_LAYERS)
+    for path, c, w in (("kernel", cfg.with_(use_flash_kernel=True), weights),
+                       ("plain", cut_cfg, cut_weights)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         k4.launches = 0
-        res = launch.run_scheduler(c, weights, trace,
+        res = launch.run_scheduler(c, w, trace,
                                    on_step=watch if path == "kernel" else None, **kw)
         res["launches"] = k4.launches
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2690,8 +2728,16 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
     check(acct["unaccounted"] == 0 and acct["in_flight"] == 0
           and acct["completed"] + acct["rejected"] == len(trace),
           f"{name}: requests not accounted: {acct}")
-    check(summ == plain["summary"], f"{name}: the kernel path's SLO summary "
-          f"differs from the plain path's: {summ} vs {plain['summary']}")
+    n_full = swap_layers(cfg, spec["model"]["max_seq"])
+    n_cut = swap_layers(cut_cfg, spec["model"]["max_seq"])
+    hbm, hbm_cut = summ["hbm"], plain["summary"]["hbm"]
+    check({k: v for k, v in summ.items() if k != "hbm"}
+          == {k: v for k, v in plain["summary"].items() if k != "hbm"}
+          and sorted(hbm) == sorted(hbm_cut)
+          and all(hbm[k] * n_cut == hbm_cut[k] * n_full for k in hbm),
+          f"{name}: the kernel path's SLO summary differs from the plain "
+          f"path's ({n_full} and {n_cut} swappable layers): {summ} vs "
+          f"{plain['summary']}")
     check(kern["launches"] > 0 and plain["launches"] == 0,
           f"{name}: kernel 4 launches {kern['launches']} (plain path "
           f"{plain['launches']})")
@@ -2720,14 +2766,16 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
           f"swapping every {int(spec['model']['kv_compress_ratio'] * spec['model']['kv_sketch_rank'])} "
           f"rows, prefill_chunk {spec['prefill_chunk']}; trace {spec['trace']}: "
           f"{kern['tokens']} tokens in {kern['seconds']:.2f} s wall "
-          f"({kern['tokens_per_s']:.1f} tok/s; plain path {plain['seconds']:.2f} s, "
+          f"({kern['tokens_per_s']:.1f} tok/s; plain path on the first "
+          f"{CUT_LAYERS} layers {plain['seconds']:.2f} s, "
           f"{plain['tokens_per_s']:.1f} tok/s); {kern['steps']} scheduler steps, "
           f"median {what} step {dec_ms:.2f} ms ({len(decode)} steps), "
           f"median step with prefill work {sorted(prefill)[len(prefill) // 2]:.2f} ms "
           f"({len(prefill)}); kernel 4 launches {kern['launches']}; peak memory "
           f"{kern['peak_gib']:.2f} GiB (plain {plain['peak_gib']:.2f}); largest pos "
           f"{pos_max[0]}, largest comp_len {comp_seen[0]}; accounting {acct}; "
-          f"SLO summary equal to the plain path's [{card}]")
+          f"SLO summary equal to the plain path's, its HBM gauge x {n_full}/{n_cut} "
+          f"swappable layers [{card}]")
     print(f"[sched] {name} virtual clock: TTFT p50 / p99 {summ['ttft_p50_s']:.4f} / "
           f"{summ['ttft_p99_s']:.4f} s, TPOT p50 / p99 {summ['tpot_p50_s']:.5f} / "
           f"{summ['tpot_p99_s']:.5f} s, latency p50 / p99 {summ['latency_p50_s']:.4f} / "
@@ -2762,13 +2810,15 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
 
     if budget:
         t0 = time.perf_counter()
-        bound = Scheduler(sch.model, prefill_chunk=spec["prefill_chunk"]).stream_bound
-        cap_kw = dict(kw, hbm_budget=BUDGET_STREAMS * bound)
         del sch, kern
         torch.cuda.empty_cache()
+        cut_kcfg = cut_cfg.with_(use_flash_kernel=True)
+        bound = Scheduler(ModelStep(cut_kcfg, cut_weights, device=dev, **spec["model"]),
+                          prefill_chunk=spec["prefill_chunk"]).stream_bound
+        cap_kw = dict(kw, hbm_budget=BUDGET_STREAMS * bound)
         k4.launches = 0
-        res = launch.run_scheduler(cfg.with_(use_flash_kernel=True), weights,
-                                   trace[:BUDGET_REQUESTS], **cap_kw)
+        res = launch.run_scheduler(cut_kcfg, cut_weights, trace[:BUDGET_REQUESTS],
+                                   **cap_kw)
         s_cap, s_b = res["scheduler"], res["summary"]
         check(s_cap.max_streams == BUDGET_STREAMS
               and s_b["concurrency_max"] == BUDGET_STREAMS
@@ -2776,7 +2826,8 @@ def phase13_cell(torch, dev, card, name: str, spec: dict, *,
               and s_b["accounting"]["in_flight"] == 0
               and s_b["accounting"]["completed"] == BUDGET_REQUESTS,
               f"{name} under hbm_budget: cap {s_cap.max_streams}, {s_b}")
-        print(f"[sched] {name} hbm_budget {cap_kw['hbm_budget']} B = {BUDGET_STREAMS} x "
+        print(f"[sched] {name} on the first {CUT_LAYERS} layers, hbm_budget "
+              f"{cap_kw['hbm_budget']} B = {BUDGET_STREAMS} x "
               f"the stream bound {bound} B, the trace's first {BUDGET_REQUESTS} "
               f"requests: admission cap {s_cap.max_streams} streams, concurrency "
               f"max {s_b['concurrency_max']} (mean {s_b['concurrency_mean']:.2f}), "
@@ -3305,6 +3356,393 @@ def _phase14(torch, dev, card) -> dict:
     return out
 
 
+# Phase 15: MLA serving, deepseek-v2-lite-16b at full width and depth (27
+# layers: a dense-MLP MLA prelude, then 26 MLA + MoE; d_model 2048, 16 heads,
+# kv_lora 512, qk_nope 128, qk_rope 64, v_head 128; 64 experts top-6 of width
+# 1408 + 2 shared of 2816; vocab 102400; random weights from a seed drawn
+# straight into bf16, the router f32: 31.4 GB).  Cuts (PERF.md section 4):
+# prefill batch 32 -> 1 at 4096 of prefill_32k's 32768 tokens; 8-request
+# scheduler and engine runs.  MLA reaches none of the four kernels; 15f runs
+# kernel 2 on the latent sketches.
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_PREFILL_SEQ = 4096                              # 15a-b
+MLA_CHUNK_PROMPT, MLA_CHUNK, MLA_STEPWISE = 1024, 128, 128   # 15c, 8 slots
+MLA_POOL_SLOTS, MLA_POOL_PROMPT, MLA_POOL_SEQ = 16, 64, 128   # 15c, the pool
+MLA_MODEL = dict(slots=8, max_seq=4096, kv_sketch_rank=32)    # 15d, no swaps
+MLA_SCHED = {"prefill_chunk": 512, "max_queue": 64,           # 15d
+             "trace": dict(seed=2, n_requests=8, arrival_rate=200.0,
+                           prompt_short=(128, 512), prompt_long=(1536, 3072),
+                           long_frac=0.25, max_new_range=(32, 96))}
+MLA_ENGINE_KW = dict(slots=8, max_seq=2048, kv_sketch_rank=32)   # 15e: the CLI's
+MLA_REQUESTS, MLA_PROMPT_LEN, MLA_MAX_NEW = 8, 256, 64          # defaults
+PHASE15_LIMIT_S = 150.0
+
+
+def phase15_mla(torch, dev, card) -> dict:
+    """Phase 15: deepseek-v2-lite-16b through the serving entry points at full
+    width and depth: (15a) make_prefill_step, (15b) grow_cache + one absorbed
+    decode step against a full forward, (15c) a prompt through prefill_rows in
+    one chunk, in chunks and token by token, then the 16-slot pool prefill
+    beside another slot's live latents, (15d) the scheduler with latent
+    sketches, (15e) the CLI's engine path, (15f) one drained slot's latents
+    streamed through kernel 2 against its one-shot sketch."""
+    with torch.inference_mode():       # serving: no autograd bookkeeping
+        return _phase15(torch, dev, card)
+
+
+def _phase15(torch, dev, card) -> dict:
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.core import projection as proj
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_compress
+    from repro_torch.serve.model_step import ModelStep
+    from repro_torch.stream.state import fused_at_row_offset
+    t_phase = time.perf_counter()
+    out, sub = {}, {}
+    cfg = R.get_arch(MLA_ARCH)
+    kcfg = cfg.with_(use_flash_kernel=True)      # as the serve CLI sets it
+    m_cfg, n_layers = cfg.mla, cfg.n_layers
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    weights = T.cast_params_for_compute(
+        cfg, launch.init_weights(cfg, seed=0, device=dev, compute_dtype=True))
+    torch.cuda.synchronize()
+    nbytes = sum(w.numel() * w.element_size() for w in weights.values())
+    print(f"[mla] {cfg.name}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+          f"({T.active_param_count(cfg) / 1e9:.3f} B active a token) at the "
+          f"published widths ({n_layers} layers: a dense-MLP MLA prelude, then "
+          f"{n_layers - 1} MLA + MoE; d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"kv_lora {m_cfg.kv_lora_rank}, qk_nope {m_cfg.qk_nope_dim}, qk_rope "
+          f"{m_cfg.qk_rope_dim}, v_head {m_cfg.v_head_dim}; {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k} of width {cfg.moe.d_expert} + "
+          f"{cfg.moe.num_shared} shared of {cfg.moe.d_shared}; vocab {cfg.vocab}), "
+          f"drawn in bf16 (router f32) from seed 0: {nbytes / 1e9:.2f} GB in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({base:.2f} GiB "
+          f"before the draw) [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(1515)
+    tokens = torch.randint(0, cfg.vocab, (1, MLA_PREFILL_SEQ + 1), generator=gen,
+                           device=dev)
+    prompt = tokens[:, :MLA_PREFILL_SEQ]
+
+    # -- 15a: whole-prompt prefill (MLA materialized), two calls ------------
+    t_sub = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    k3.launches = 0
+    walls = []
+    for _ in range(2):
+        cache = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = launch.run_prefill(kcfg, weights, prompt)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    latent = sum(leaf.numel() * leaf.element_size() for layers in
+                 (cache["pre"], cache["scan"]) for layer in layers
+                 for leaf in layer.values())
+    print(f"[mla] 15a {cfg.name} (1, {MLA_PREFILL_SEQ}) make_prefill_step "
+          f"(use_flash_kernel set, as the CLI sets it): first call "
+          f"{walls[0]:.1f} ms, second {walls[1]:.1f} ms; kernel 3 launches "
+          f"{k3.launches} (MLA attends through layers.attention); latent cache "
+          f"{latent / 2**20:.1f} MiB ({sorted(cache['scan'][0])}); peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    check(k3.launches == 0, f"15a: an MLA layer launched kernel 3 {k3.launches} times")
+    check(bool(torch.isfinite(logits).all()), "15a: prefill logits not finite")
+    check(tuple(cache["scan"][0]["ckv"].shape)
+          == (cfg.n_scan_periods, 1, MLA_PREFILL_SEQ, m_cfg.kv_lora_rank),
+          f"15a: latent cache shape {tuple(cache['scan'][0]['ckv'].shape)}")
+    out["15a"] = {"ms_first": walls[0], "ms_second": walls[1], "peak_gib": peak,
+                  "kernel3_launches": k3.launches}
+    sub["15a"] = time.perf_counter() - t_sub
+
+    # -- 15b: grow_cache + one absorbed decode step vs a full forward -----
+    t_sub = time.perf_counter()
+    grown = cache_mod.grow_cache(cache, 1)
+    del cache, logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = R.make_serve_step(kcfg)(weights, {
+        "tokens": tokens[:, MLA_PREFILL_SEQ:], "cache": grown,
+        "write_pos": MLA_PREFILL_SEQ})
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3
+    del grown
+    want = R._final_logits(kcfg, T.forward(kcfg, weights, tokens,
+                                           last_only=True).logits[:, -1])
+    corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+    diff = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=0.15, atol=0.15)) and corr > 0.99
+    print(f"[mla] 15b grow_cache + one absorbed-latent decode step at write_pos "
+          f"{MLA_PREFILL_SEQ} ({t_dec:.1f} ms) vs a full forward over "
+          f"{MLA_PREFILL_SEQ + 1} (materialized): max|d| {diff:.3e} at |logit| "
+          f"max {want.abs().max().item():.2f}, correlation {corr:.6f} (rtol = "
+          f"atol = 0.15, correlation > 0.99) [{card}]")
+    check(ok, "15b: prefill + absorbed decode disagrees with the full forward")
+    out["15b"] = {"max_diff": diff, "corr": corr, "ms_decode": t_dec}
+    del got, want
+    sub["15b"] = time.perf_counter() - t_sub
+
+    # -- 15c: prefill_rows in one chunk, in chunks, token by token; the pool -
+    t_sub = time.perf_counter()
+    prompt_c = tokens[0, :MLA_CHUNK_PROMPT].tolist()
+    slots8 = MLA_MODEL["slots"]
+    runs = {}
+    for label, chunk, n in (("one chunk", MLA_CHUNK_PROMPT, MLA_CHUNK_PROMPT),
+                            ("chunks", MLA_CHUNK, MLA_CHUNK_PROMPT),
+                            ("token by token", 1, MLA_STEPWISE)):
+        m = ModelStep(kcfg, weights, device=dev, slots=slots8,
+                      max_seq=MLA_CHUNK_PROMPT)
+        seen = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, n, chunk):
+            seen[start + chunk] = m.prefill_rows(0, prompt_c[start:start + chunk],
+                                                 start)
+        torch.cuda.synchronize()
+        runs[label] = (seen, (time.perf_counter() - t0) * 1e3, m._pool_prefill)
+        del m
+    (one, t_one, p1), (many, t_many, p2), (steps, t_steps, p3) = runs.values()
+    ok_full, msg_full = logits_agree(torch, many[MLA_CHUNK_PROMPT][None],
+                                     one[MLA_CHUNK_PROMPT][None], "bfloat16", 5e-2)
+    ok_head, msg_head = logits_agree(torch, many[MLA_STEPWISE][None],
+                                     steps[MLA_STEPWISE][None], "bfloat16", 5e-2)
+    print(f"[mla] 15c a {MLA_CHUNK_PROMPT}-token prompt through "
+          f"ModelStep.prefill_rows ({slots8} slots: a chunk is one dropless step "
+          f"through MLA's cached branch) in one chunk ({t_one:.1f} ms) and in "
+          f"chunks of {MLA_CHUNK} ({t_many:.1f} ms): last logits {msg_full}; its "
+          f"first {MLA_STEPWISE} tokens one at a time ({t_steps:.1f} ms) against "
+          f"the first chunk of {MLA_CHUNK}: {msg_head} [{card}]")
+    check(not (p1 or p2 or p3), "15c: the 8-slot model step prefills through the pool")
+    check(ok_full, "15c: chunked prefill disagrees with the one-chunk prefill")
+    check(ok_head, "15c: a chunk disagrees with the token-by-token prefill")
+    out["15c"] = {"ms_one": t_one, "ms_chunks": t_many, "ms_stepwise": t_steps}
+    del one, many, steps, runs
+
+    # the 16-slot pool: one masked pool step a token, beside slot 3's live
+    # latent rows, which must stay bit for bit
+    pool = ModelStep(kcfg, weights, device=dev, slots=MLA_POOL_SLOTS,
+                     max_seq=MLA_POOL_SEQ)
+    live = {}
+    for group in ("pre", "scan"):
+        for i, layer in enumerate(pool.cache[group]):
+            for name, leaf in layer.items():
+                rows = leaf[:, 3] if group == "scan" else leaf[3]
+                rows[..., :MLA_POOL_PROMPT, :].copy_(torch.randn(
+                    rows[..., :MLA_POOL_PROMPT, :].shape, generator=gen,
+                    device=dev).to(rows.dtype))
+                live[(group, i, name)] = rows.clone()
+    pool.pos[3] = MLA_POOL_PROMPT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = pool.prefill_rows(5, prompt_c[:MLA_POOL_PROMPT], 0)
+    torch.cuda.synchronize()
+    t_pool = (time.perf_counter() - t0) * 1e3
+    kept = all(torch.equal(pool.cache[g][i][n][:, 3] if g == "scan"
+                           else pool.cache[g][i][n][3], old)
+               for (g, i, n), old in live.items())
+    wrote = bool(pool.cache["scan"][0]["ckv"][:, 5, :MLA_POOL_PROMPT].any())
+    cap = moe.capacity(MLA_POOL_SLOTS, cfg.moe.num_experts, cfg.moe.top_k,
+                       cfg.moe.capacity_factor)
+    print(f"[mla] 15c the {MLA_POOL_SLOTS}-slot pool (expert capacity {cap} "
+          f"of {MLA_POOL_SLOTS} tokens: pairs drop): a {MLA_POOL_PROMPT}-token "
+          f"prompt into slot 5 through _prefill_pool, one masked pool step a "
+          f"token, {t_pool:.1f} ms ({t_pool / MLA_POOL_PROMPT:.1f} ms a step); "
+          f"slot 3's live ckv/kr rows bit for bit: {kept}; slot 5's rows "
+          f"written: {wrote}; pos {list(map(int, pool.pos))[:6]} [{card}]")
+    check(pool._pool_prefill, "15c: the 16-slot model step does not prefill through the pool")
+    check(kept, "15c: the pool prefill overwrote another slot's live latent rows")
+    check(wrote and bool(torch.isfinite(last).all()),
+          "15c: the pool prefill wrote no latent rows or non-finite logits")
+    out["15c"]["ms_pool"] = t_pool
+    del pool, live, last
+    torch.cuda.empty_cache()
+    sub["15c"] = time.perf_counter() - t_sub
+
+    # -- 15d: the scheduler with latent sketches ---------------------------
+    t_sub = time.perf_counter()
+    try:
+        ModelStep(kcfg, weights, device=dev, slots=1, max_seq=16,
+                  kv_sketch_rank=32, kv_compress_ratio=2.0)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and "not swappable" in refused,
+          "15d: a ModelStep with kv_compress_ratio did not raise for MLA latents")
+    trace = cell_trace(MLA_SCHED, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    res = launch.run_scheduler(kcfg, weights, trace,
+                               prefill_chunk=MLA_SCHED["prefill_chunk"],
+                               max_queue=MLA_SCHED["max_queue"], device=dev,
+                               **MLA_MODEL)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ, kinds = res["summary"], res["step_kinds"]
+    acct = summ["accounting"]
+    decode_calls = sum(d for _, d in kinds)
+    single = sum(p for p, _ in kinds)
+    dec = sorted(t for t, (p, d) in zip(res["step_ms"], kinds) if d and not p)
+    pre = sorted(t for t, (p, d) in zip(res["step_ms"], kinds) if p)
+    sch = res["scheduler"]
+    m = sch.model
+    high = []
+    for s in range(m.slots):
+        if m._kv_sketches[s] is None:
+            continue
+        m._flush_kv_pending(s)
+        seen = {st.rows_seen for st in m._kv_sketches[s].values()}
+        high.append((s, int(m.pos[s]), int(m._kv_next_row[s]), sorted(seen)))
+    rep = m.kv_bytes_report()
+    rows = int(m.pos.sum())
+    latent = rows * n_layers * (m_cfg.kv_lora_rank + m_cfg.qk_rope_dim) * 2
+    dense_kv = rows * n_layers * 2 * cfg.n_heads * m_cfg.v_head_dim * 2
+    print(f"[mla] 15d scheduler, {m.slots} slots x {m.max_seq} rows, rank "
+          f"{m.kv_sketch_rank} latent sketches ({len(m._kv_paths)} paths a slot), "
+          f"no swaps, prefill_chunk {MLA_SCHED['prefill_chunk']}; trace "
+          f"{MLA_SCHED['trace']}: {res['tokens']} tokens in {res['seconds']:.2f} s "
+          f"wall ({res['tokens_per_s']:.1f} tok/s); {res['steps']} scheduler "
+          f"steps, {single} single-slot prefill and catch-up calls, "
+          f"{decode_calls} batched decode steps (median decode-only step "
+          f"{dec[len(dec) // 2] if dec else float('nan'):.2f} ms over {len(dec)}), "
+          f"median step with prefill work {pre[len(pre) // 2] if pre else float('nan'):.2f} "
+          f"ms over {len(pre)}; peak memory {peak:.2f} GiB; accounting {acct}; "
+          f"(slot, pos, high-water, sketch rows seen) {high} [{card}]")
+    print(f"[mla] 15d virtual clock: TTFT p50 / p99 {summ['ttft_p50_s']:.4f} / "
+          f"{summ['ttft_p99_s']:.4f} s, TPOT p50 / p99 {summ['tpot_p50_s']:.5f} / "
+          f"{summ['tpot_p99_s']:.5f} s, latency p50 / p99 {summ['latency_p50_s']:.4f} / "
+          f"{summ['latency_p99_s']:.4f} s, {summ['tokens_per_s']:.1f} tok/s, "
+          f"concurrency max {summ['concurrency_max']}; kv_bytes_report swappable "
+          f"{rep['compressed_bytes']} B of dense {rep['dense_bytes']} B; the "
+          f"drained slots' {rows} rows hold {latent / 2**20:.1f} MiB of latents "
+          f"against {dense_kv / 2**20:.1f} MiB of dense K/V ({cfg.n_heads} x "
+          f"{m_cfg.v_head_dim} k and v a row a layer); kv_compress_ratio=2 "
+          f"refused: {refused!r}")
+    check(acct["unaccounted"] == 0 and acct["in_flight"] == 0
+          and acct["completed"] + acct["rejected"] == len(trace),
+          f"15d: requests not accounted: {acct}")
+    check(all(0 < len(r.out) <= r.max_new for r in sch.finished),
+          "15d: a finished request has no output or too much")
+    check(high and all(p == h and seen == [p] for _, p, h, seen in high),
+          f"15d: sketch high-water != pos: {high}")
+    check(rep["dense_bytes"] == 0 and rep["compressed_bytes"] == 0,
+          f"15d: MLA latents counted as swappable: {rep}")
+    # one batched decode step of every slot on the drained model, traced
+    clock = min(int(m.pos.max()), m.max_seq - 1)
+    wall_t, busy, top = device_breakdown(torch, lambda: m.sample(m.decode_logits(
+        [[0]] * m.slots, clock, slot_mask=[True] * m.slots)))
+    print(f"[profile] 15d one decode step of all {m.slots} slots after the drain "
+          f"(clock {clock}): wall {wall_t:.3f} ms (traced), device kernels "
+          f"{busy:.3f} ms (busy {100 * busy / wall_t:.0f}%); top: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in top[:6]) + f" [{card}]")
+    out["15d"] = {"tokens": res["tokens"], "seconds": res["seconds"],
+                  "steps": res["steps"], "single_slot_calls": single,
+                  "decode_steps": decode_calls, "peak_gib": peak, "summary": summ,
+                  "median_decode_ms": dec[len(dec) // 2] if dec else None,
+                  "traced_decode": {"wall_ms": wall_t, "device_ms": busy}}
+    sub["15d"] = time.perf_counter() - t_sub
+
+    # -- 15e: the serve CLI's engine path ----------------------------------
+    t_sub = time.perf_counter()
+    prompts = launch.make_prompts(MLA_REQUESTS, MLA_PROMPT_LEN, cfg.vocab, seed=1)
+    res = launch.run_engine(kcfg, weights, prompts, max_new=MLA_MAX_NEW,
+                            device=dev, **MLA_ENGINE_KW)
+    eng = res["engine"]
+    dec = sorted(res["step_ms"][1:])
+    print(f"[mla] 15e run_engine (the serve CLI's engine path, {MLA_ENGINE_KW}, "
+          f"kv_compress_ratio None): {MLA_REQUESTS} prompts of {MLA_PROMPT_LEN}, "
+          f"{MLA_MAX_NEW} new: {res['tokens']} tokens in {res['seconds']:.2f} s "
+          f"({res['tokens_per_s']:.1f} tok/s, {res['steps']} steps, median step "
+          f"after the first {dec[len(dec) // 2]:.2f} ms); pos "
+          f"{[int(p) for p in eng.pos]} [{card}]")
+    check(not eng.queue and not any(eng.active)
+          and res["steps"] == MLA_MAX_NEW - 1
+          and all(int(p) == MLA_PROMPT_LEN + MLA_MAX_NEW - 1 for p in eng.pos),
+          "15e: the engine did not serve every request to its end")
+    out["15e"] = {"tokens": res["tokens"], "seconds": res["seconds"],
+                  "tokens_per_s": res["tokens_per_s"]}
+    del res, eng
+    sub["15e"] = time.perf_counter() - t_sub
+
+    # -- 15f: one drained slot's latents through kernel 2 ------------------
+    t_sub = time.perf_counter()
+    slot = int(m.pos.argmax())
+    pos = int(m.pos[slot])
+    flush = m._kv_flush_every
+    k2.launches = 0
+    streamed = {}
+    for j, path in enumerate(m._kv_paths):
+        rows = m._kv_leaf_rows(path, slot, 0, pos)
+        state = kv_compress.kv_sketch_init(
+            m._slot_key(slot, j), rows.shape[0], rows.shape[-1], m.max_seq,
+            m.kv_sketch_rank, method="shgemm_fused", device=dev)
+        for start in range(0, pos, flush):
+            state = kv_compress.kv_sketch_append(
+                state, rows[:, start:start + flush], start)
+        streamed[path] = (state, rows)
+    torch.cuda.synchronize()
+    launches = k2.launches
+    heads = sum(rows.shape[0] for _, rows in streamed.values())
+    expected = -(-pos // flush) * heads
+    bitwise, err = True, 0.0
+    for j, (path, (state, rows)) in enumerate(streamed.items()):
+        key = state.key_omega
+        for h in range(rows.shape[0]):
+            d = rows.shape[-1]
+            one = fused_at_row_offset(rows[h], key, state.p, h * d)
+            plain = k2.shgemm_fused_plain(rows[h].float(), key, state.p,
+                                          row_offset=h * d)
+            bitwise &= torch.equal(state.y[h, :pos], one)
+            err = max(err, (one - plain).abs().max().item())
+            check(torch.allclose(one, plain, rtol=1e-5, atol=1e-4),
+                  f"15f: kernel 2 on {path} head {h} disagrees with plain")
+    # kernel 2 at the slot's first ckv history, (pos, 512) . p, timed
+    state, rows = streamed[m._kv_paths[0]]
+    a = rows[0].float().contiguous()
+    p_w = state.p
+    kern = (lambda: fused_at_row_offset(a, state.key_omega, p_w, 0))
+    omega32 = proj.fused_omega(state.key_omega, (a.shape[1], p_w), device=dev).float()
+    t_k, d_k = median_ms(torch, kern), device_ms(torch, kern)
+    t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, state.key_omega, p_w))
+    t_l, d_l = median_ms(torch, lambda: torch.matmul(a, omega32)), \
+        device_ms(torch, lambda: torch.matmul(a, omega32))
+    t_b, by = bound_ms(pos, a.shape[1], p_w, 2, 0)
+    print(f"[mla] 15f slot {slot}'s latents ({pos} rows; {len(streamed)} paths, "
+          f"ckv {tuple(streamed[m._kv_paths[0]][1].shape)} ... kr) streamed "
+          f"through kv_sketch_init(method='shgemm_fused') + kv_sketch_append in "
+          f"{flush}-row flushes: kernel 2 launches {launches} (= "
+          f"{-(-pos // flush)} flushes x {heads} head rows: {launches == expected}); "
+          f"every head's sketch == kernel 2's one-shot sketch of its history bit "
+          f"for bit: {bitwise}; one-shot vs shgemm_fused_plain max abs err "
+          f"{err:.3e} (rtol 1e-5, atol 1e-4) [{card}]")
+    print(f"[time] shgemm_fused mla 15f ({pos}x{a.shape[1]} @ {a.shape[1]}x{p_w}, "
+          f"gaussian bf16, 2 terms): kernel {t_k:.4f} ms (device {fmt_dev(d_k)} "
+          f"ms), plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
+          f"{fmt_dev(d_l)} ms), bound {t_b:.4f} ms ({by}) [{card}]")
+    check(launches == expected and launches > 0,
+          f"15f: kernel 2 launches {launches} != {expected}")
+    check(bitwise, "15f: the streamed latent sketch differs from the one-shot sketch")
+    out["15f"] = {"launches": launches, "shape": [pos, a.shape[1], p_w],
+                  "max_abs_err": err, "ms": t_k, "device_ms": d_k[0],
+                  "plain_ms": t_p, "library_ms": t_l, "library_device_ms": d_l[0],
+                  "bound_ms": t_b, "bound_by": by}
+    del streamed, state, rows, a, omega32, sch, m, weights
+    torch.cuda.empty_cache()
+    sub["15f"] = time.perf_counter() - t_sub
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[mla] phase 15 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sub.items())
+          + f"); kernel 2 launches in 15f {out['15f']['launches']} (count set to "
+          f"0 before the run) [{card}]")
+    check(out["seconds"] <= PHASE15_LIMIT_S,
+          f"phase 15 took {out['seconds']:.1f} s > {PHASE15_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3724,6 +4162,11 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     moe14 = phase14_moe(torch, dev, card)
 
+    # -- 15. MLA serving: deepseek-v2-lite-16b (31 GB of weights) ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla15 = phase15_mla(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -3756,6 +4199,8 @@ def run(torch) -> int:
             if key[0] == rec["name"]]
     kernels[1]["training_launches"]["loop"] = train12["loop"]["clean"]["kernel2_launches"]
     kernels[1]["rolling_launches"] = sched13["13c"]["launches"]
+    kernels[1]["mla_launches"] = mla15["15f"]["launches"]
+    kernels[1]["mla"] = {"arch": MLA_ARCH, **mla15["15f"]}
     kernels[0]["training_launches"]["world_ranks"] = [
         x["launches"] for x in train12["world"]["ranks"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]

@@ -7,6 +7,7 @@ batching scheduler driven by a seeded Poisson trace.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --arch gemma2-2b --arrival-rate 50 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
 
 With ``--arrival-rate`` (or ``--load-trace``) the launcher drives the
 scheduler (``serve/scheduler.py``): seeded arrivals from
@@ -215,7 +216,10 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument("--kv-rank", type=int, default=32)
-    ap.add_argument("--kv-compress-ratio", type=float, default=2.0)
+    ap.add_argument("--kv-compress-ratio", type=float, default=None,
+                    help="swap a slot's dense KV rows for rank-r factors "
+                         "once its dense tail reaches this many rows a rank "
+                         "(default: sketch, never swap)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--arrival-rate", type=float, default=None,

@@ -17,9 +17,11 @@ scan leaves stacked over periods.  Decode writes the new token's k/v into
 the cache IN PLACE (write-then-attend) and returns the same cache object;
 the reference returns an updated copy.
 
-Served and trained here: ``mixer="attn"`` with ``ffn="mlp"`` or the routed
+Served and trained here: ``mixer="attn"`` and ``mixer="mla"`` (DeepSeek's
+latent attention, ``models/mla.py``) with ``ffn="mlp"`` or the routed
 experts ``ffn="moe"`` (``models/moe.py``), full-context or windowed prefill, full-context decode with or without the factored
-prefix, windowed decode and chunked prefill over a ring-buffer cache, and
+prefix, windowed decode and chunked prefill over a ring-buffer cache,
+absorbed latent decode and chunked prefill into a latent cache, and
 the single-card training loss (``cross_entropy``, ``loss_fn``;
 autograd runs through the forward, which never writes a tensor autograd
 saved: the only in-place writes are those of a cache, and training passes
@@ -39,10 +41,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 
 _NOT_PORTED = {
-    "mla": "MLA (ROADMAP Queue 1 item 16c)",
     "rglru": "recurrent mixers (ROADMAP Queue 1 item 16e)",
     "mlstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
     "slstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
@@ -80,7 +82,7 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
                        cfg.d_ff)
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * cfg.n_layers)
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mla"):
         raise not_ported(spec.mixer)
     if spec.cross_attn:
         raise not_ported("cross_attn")
@@ -91,17 +93,27 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
     if cfg.post_norms:
         defs.update(_norm_defs(cfg, "norm1_post"))
         defs.update(_norm_defs(cfg, "norm2_post"))
-    defs["attn/wq"] = ParamDef((D, H, hd), s_in)
-    defs["attn/wk"] = ParamDef((D, KV, hd), s_in)
-    defs["attn/wv"] = ParamDef((D, KV, hd), s_in)
-    defs["attn/wo"] = ParamDef((H * hd, D), s_out)
-    if cfg.qkv_bias:
-        defs["attn/bq"] = ParamDef((H, hd), 0.0)
-        defs["attn/bk"] = ParamDef((KV, hd), 0.0)
-        defs["attn/bv"] = ParamDef((KV, hd), 0.0)
-    if cfg.qk_norm:
-        defs["attn/q_norm"] = ParamDef((hd,), 0.0)
-        defs["attn/k_norm"] = ParamDef((hd,), 0.0)
+    if spec.mixer == "mla":
+        m = cfg.mla
+        defs["mla/wq"] = ParamDef((D, H, m.qk_nope_dim + m.qk_rope_dim), s_in)
+        defs["mla/w_dkv"] = ParamDef((D, m.kv_lora_rank), s_in)
+        defs["mla/kv_norm"] = ParamDef((m.kv_lora_rank,), 0.0)
+        defs["mla/w_kr"] = ParamDef((D, m.qk_rope_dim), s_in)
+        defs["mla/w_uk"] = ParamDef((m.kv_lora_rank, H, m.qk_nope_dim), s_in)
+        defs["mla/w_uv"] = ParamDef((m.kv_lora_rank, H, m.v_head_dim), s_in)
+        defs["mla/wo"] = ParamDef((H * m.v_head_dim, D), s_out)
+    else:
+        defs["attn/wq"] = ParamDef((D, H, hd), s_in)
+        defs["attn/wk"] = ParamDef((D, KV, hd), s_in)
+        defs["attn/wv"] = ParamDef((D, KV, hd), s_in)
+        defs["attn/wo"] = ParamDef((H * hd, D), s_out)
+        if cfg.qkv_bias:
+            defs["attn/bq"] = ParamDef((H, hd), 0.0)
+            defs["attn/bk"] = ParamDef((KV, hd), 0.0)
+            defs["attn/bv"] = ParamDef((KV, hd), 0.0)
+        if cfg.qk_norm:
+            defs["attn/q_norm"] = ParamDef((hd,), 0.0)
+            defs["attn/k_norm"] = ParamDef((hd,), 0.0)
     if spec.ffn == "mlp":
         defs["mlp/w_gate"] = ParamDef((D, F), s_in)
         defs["mlp/w_up"] = ParamDef((D, F), s_in)
@@ -150,7 +162,9 @@ def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
 def keeps_f32(name: str, ndim: int) -> bool:
     """Leaves the compute cast leaves f32: those under 2-D (the unstacked
     norm scales) and the MoE router, with which the reference's
-    ``moe_block`` routes in f32."""
+    ``moe_block`` routes in f32.  Stacked norm scales (``mla/kv_norm`` of
+    the scan layers among them) are 2-D and cast, as the reference casts
+    every leaf of two dims or more."""
     return ndim < 2 or name.endswith("moe/router")
 
 
@@ -241,23 +255,28 @@ def _act_dtype(cfg):
 def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                 positions, rope, cache, write_pos, return_cache: bool,
                 causal: bool = True, factors=None, comp_len=None):
-    """Residual block: norm -> attention -> (+) [norm -> mlp/moe -> (+)].
-    ``rope`` is the (cos, sin) of ``positions`` (None without RoPE).
-    Returns (x, new_cache_dict_or_None)."""
-    if spec.mixer != "attn":
+    """Residual block: norm -> attention or MLA -> (+) [norm -> mlp/moe ->
+    (+)].  ``rope`` is the (cos, sin) of ``positions`` at the mixer's
+    rotary width (None without RoPE).  Returns (x, new_cache_dict_or_None)."""
+    if spec.mixer not in ("attn", "mla"):
         raise not_ported(spec.mixer)
     if spec.cross_attn:
         raise not_ported("cross_attn")
     h = L.apply_norm(cfg, p, "norm1", x)
-    c = None
-    if cache is not None and "k" in cache:
-        c = L.KVCache(cache["k"], cache["v"])
-    mix, kv = _attn_with_cache(cfg, spec, p, h, positions=positions,
-                               rope=rope, cache=c,
-                               write_pos=write_pos, return_cache=return_cache,
-                               causal=causal, factors=factors,
-                               comp_len=comp_len)
-    new_cache = {"k": kv.k, "v": kv.v} if kv is not None else None
+    if spec.mixer == "mla":
+        mix, new_cache = mla_mod.mla_block(
+            cfg, p, h, positions=positions, rope=rope,
+            cache=cache if cache and "ckv" in cache else None,
+            write_pos=write_pos, return_cache=return_cache)
+    else:
+        c = None
+        if cache is not None and "k" in cache:
+            c = L.KVCache(cache["k"], cache["v"])
+        mix, kv = _attn_with_cache(cfg, spec, p, h, positions=positions,
+                                   rope=rope, cache=c, write_pos=write_pos,
+                                   return_cache=return_cache, causal=causal,
+                                   factors=factors, comp_len=comp_len)
+        new_cache = {"k": kv.k, "v": kv.v} if kv is not None else None
     if cfg.post_norms:
         mix = L.apply_norm(cfg, p, "norm1_post", mix)
     if cfg.parallel_block and spec.ffn != "none":
@@ -404,16 +423,18 @@ def _ring_attend(cfg, q, k, v, cache, positions, write_pos: int, *, scale,
 # ---------------------------------------------------------------------------
 
 def apply_stack(cfg: ModelCfg, params: dict, x: torch.Tensor, *, positions,
-                rope, cache, write_pos, return_cache: bool, causal: bool = True,
+                ropes, cache, write_pos, return_cache: bool, causal: bool = True,
                 kv_factors=None, comp_len=None):
     """Prelude layers, the repeated pattern group (a loop over periods on
-    views of the stacked leaves) and the remainder layers."""
+    views of the stacked leaves) and the remainder layers.  ``ropes`` maps
+    a mixer to its RoPE tables (``rope_tables``)."""
     has_cache = cache is not None
     has_f = kv_factors is not None
     collect = return_cache and not has_cache
 
     def run(x, spec, p, c, f):
-        return apply_layer(cfg, spec, p, x, positions=positions, rope=rope,
+        return apply_layer(cfg, spec, p, x, positions=positions,
+                           rope=ropes.get(spec.mixer),
                            cache=c,
                            write_pos=write_pos, return_cache=return_cache,
                            causal=causal, factors=f, comp_len=comp_len)
@@ -464,6 +485,20 @@ def apply_stack(cfg: ModelCfg, params: dict, x: torch.Tensor, *, positions,
 # Full model forward
 # ---------------------------------------------------------------------------
 
+def rope_tables(cfg: ModelCfg, positions: torch.Tensor) -> dict:
+    """The (cos, sin) tables of ``positions`` for each mixer of the stack:
+    attention ropes ``head_dim`` columns (when ``use_rope``), MLA its
+    ``qk_rope_dim`` columns always (as the reference's ``mla_block``)."""
+    mixers = {spec.mixer for spec in cfg.layer_specs()}
+    ropes = {}
+    if "attn" in mixers and cfg.use_rope:
+        ropes["attn"] = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if "mla" in mixers:
+        ropes["mla"] = L.rope_tables(positions, cfg.mla.qk_rope_dim,
+                                     cfg.rope_theta)
+    return ropes
+
+
 class ForwardOut(NamedTuple):
     logits: torch.Tensor
     cache: Optional[dict]
@@ -500,9 +535,8 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
     # computed once here, not in every layer.
     start = int(write_pos) if cache is not None else 0
     positions = torch.arange(start, start + x.shape[1], device=dev)
-    rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-            if cfg.use_rope else None)
-    x, new_cache = apply_stack(cfg, params, x, positions=positions, rope=rope,
+    x, new_cache = apply_stack(cfg, params, x, positions=positions,
+                               ropes=rope_tables(cfg, positions),
                                cache=cache, write_pos=write_pos,
                                return_cache=return_cache,
                                kv_factors=kv_factors, comp_len=comp_len)

@@ -21,7 +21,10 @@ Differences from the reference, none of which changes the arithmetic:
     a dropless capacity (``moe.dropless``); past that, which of the slot's
     pairs drop depends on how the other slots route, and the pool runs
     token by token as the reference does (``_prefill_pool``);
-  * the weights are cast to the activation dtype once, at construction.
+  * the weights are cast to the activation dtype once, at construction;
+  * a masked step (the scheduler's decode, ``_prefill_pool``) restores the
+    other slots' rows at the clock in every leaf with a seq axis, k/v and
+    MLA latents, where the reference merges every leaf under the mask.
 Windowed (ring) cache leaves keep rolling sketches whose ring mirrors the
 cache ring (``kv_compress.kv_rolling_*``); only full-context k/v leaves swap
 to factors.
@@ -496,12 +499,14 @@ class ModelStep:
             self._note_kv_span(slot, start, int(toks.shape[0]))
         return logits
 
-    def _attn_leaves(self):
+    def _seq_leaves(self):
+        """(group, name, leaf) of every cache leaf with a seq axis: the
+        attention k/v and the MLA latents ckv/kr."""
         for group in ("pre", "scan", "rem"):
             for layer in self.cache[group] or ():
-                for name in ("k", "v"):
+                for name in ("k", "v", "ckv", "kr"):
                     if name in layer:
-                        yield group, layer[name]
+                        yield group, name, layer[name]
 
     def decode_logits(self, tokens, write_pos: int,
                       slot_mask=None) -> torch.Tensor:
@@ -529,26 +534,30 @@ class ModelStep:
     def _masked_step(self, batch: dict, slot_mask) -> torch.Tensor:
         """One serve step over the pool at ``batch["write_pos"]`` whose cache
         writes survive only for the slots in the (slots,) bool mask: the
-        other slots' rows at that clock are restored."""
+        other slots' rows at that clock are restored in every leaf with a
+        seq axis (the reference masks every leaf)."""
         wp = batch["write_pos"]
         off = torch.as_tensor(~np.asarray(slot_mask, bool), device=self.device)
-        keep = [(group, leaf, self._clock_rows(group, leaf, wp).clone())
-                for group, leaf in self._attn_leaves()]
+        keep = [(group, name, leaf,
+                 self._clock_rows(group, name, leaf, wp).clone())
+                for group, name, leaf in self._seq_leaves()]
         logits, _ = self._serve(self.params, batch)
-        for group, leaf, old in keep:
-            rows = self._clock_rows(group, leaf, wp)
-            rows.copy_(torch.where(off.reshape(
-                (1, -1) if group == "scan" else (-1,))[..., None, None],
-                old, rows))
+        for group, name, leaf, old in keep:
+            rows = self._clock_rows(group, name, leaf, wp)
+            lead = (1, -1) if group == "scan" else (-1,)
+            rows.copy_(torch.where(
+                off.reshape(lead + (1,) * (rows.ndim - len(lead))), old, rows))
         return logits
 
     @staticmethod
-    def _clock_rows(group: str, leaf: torch.Tensor, wp: int) -> torch.Tensor:
-        """View of every slot's row at clock ``wp`` of an attention leaf:
-        row ``wp`` of a full-context leaf, ring slot ``wp % window`` of a
-        windowed one (a live row of the masked-out slots there, which the
-        masked decode must restore)."""
-        row = wp % leaf.shape[-3]
+    def _clock_rows(group: str, name: str, leaf: torch.Tensor,
+                    wp: int) -> torch.Tensor:
+        """View of every slot's row at clock ``wp`` of a seq leaf: row
+        ``wp`` of a full-context k/v leaf or of an MLA latent (seq axis -2,
+        not -3), ring slot ``wp % window`` of a windowed k/v leaf (a live
+        row of the masked-out slots there, which the masked decode must
+        restore)."""
+        row = wp % leaf.shape[-2 if name in ("ckv", "kr") else -3]
         return leaf[:, :, row] if group == "scan" else leaf[:, row]
 
     def sample(self, logits: torch.Tensor) -> np.ndarray:

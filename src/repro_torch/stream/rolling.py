@@ -31,8 +31,8 @@ Left sketches are not supported (evicting a row would need the evicted row
 data), so the single-pass ``stream.svd`` refuses a finalized rolling state.
 
 Departures from the reference: the state is updated in place and returned
-(as ``stream.update`` does); ``heads=`` batches Omega-carrying states over a
-leading head axis, where the reference vmaps per-head states — the serving
+(as ``stream.update`` does); ``heads=`` batches states over a leading head
+axis, where the reference vmaps per-head states — the serving
 engine's rolling KV sketches (``serve.kv_compress.kv_rolling_*``) use it.
 """
 
@@ -82,7 +82,7 @@ def rolling_init(key, n_cols: int, p: int, *, window: int,
     than the window would evict rows still inside it, so that raises.  The
     Omega stream is the one ``stream.init`` draws for ``key``, which is what
     makes ``rolling_finalize`` equal a fresh window sketch.  ``heads``
-    batches Omega-carrying states (a non-fused method) over a leading axis.
+    batches states over a leading axis (``stream.init``).
     """
     capacity = int(window) if max_rows is None else int(max_rows)
     if window <= 0:

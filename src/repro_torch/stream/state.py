@@ -21,10 +21,12 @@ Two kinds of state:
     state holds key words and ``col_base``, never Omega.  A row tile runs
     kernel 2 at ``col_offset=col_base``; SRHT runs ``srht_sketch``.
   * Omega-carrying, for the other methods: Omega is drawn once at ``init``
-    (``projection.materialize_omega``) and kept.  It may carry leading batch
-    dimensions (``heads=``): the serving engine keeps one state per (slot,
-    cache leaf) with the heads as a batch, where the reference vmaps over
-    per-head states; head h gets rows [h*n_cols, (h+1)*n_cols) of one Omega.
+    (``projection.materialize_omega``) and kept.
+Either kind may carry a leading batch dimension (``heads=``): the serving
+engine keeps one state per (slot, cache leaf) with the heads as a batch,
+where the reference vmaps over per-head states; head h gets rows
+[h*n_cols, (h+1)*n_cols) of one Omega (a key-based state's kernel-2 call
+for head h runs at that row offset).
 
 Algebra: ``update`` (row tiles, write semantics), ``update_cols`` (general
 2-D tiles, add semantics), ``merge`` (addition), ``widen`` + ``hstack``
@@ -117,10 +119,12 @@ class SketchState:
         same tiles through ``update`` (kernel 2 hashes only the new lattice
         columns), then ``hstack`` it onto this state: the result equals a
         fresh sketch at the grown width bit for bit.  Only key-based
-        ``shgemm_fused`` states without a left sketch can widen."""
+        ``shgemm_fused`` states without a left sketch or heads can widen."""
         extra = int(extra_cols)
         if extra < 1:
             raise ValueError(f"extra_cols must be >= 1, got {extra_cols}")
+        if self.y.ndim != 2:
+            raise ValueError("cannot widen a head-batched state")
         if self.dist == "srht":
             raise ValueError(
                 "cannot widen an SRHT sketch: every Omega entry carries a "
@@ -159,9 +163,10 @@ def init(key, n_cols: int, p: int, *, max_rows: int, left: bool = False,
 
     ``left=True`` also accumulates W = Psi.A (width ``l``, default 2p+1),
     which the single-pass ``stream.svd`` needs; Psi is always on the counter
-    lattice.  ``heads`` makes a batch of Omega-carrying states (non-fused
-    methods only).  The Omega stream is the one ``projection.sketch(key,
-    ..)`` uses for ``method``, so streamed rows match one-shot sketching.
+    lattice.  ``heads`` makes a batch of right sketches, head h on Omega's
+    rows [h*n_cols, (h+1)*n_cols) (no left sketch, no structured dist).
+    The Omega stream is the one ``projection.sketch(key, ..)`` uses for
+    ``method``, so streamed rows match one-shot sketching.
     """
     if p > n_cols:
         raise ValueError(f"sketch width p={p} exceeds n_cols={n_cols}")
@@ -180,9 +185,9 @@ def init(key, n_cols: int, p: int, *, max_rows: int, left: bool = False,
             "(n_cols, p) Omega for a matrix SketchState; use "
             "stream.tucker.tucker_init(dist='khatri_rao') or "
             "core.structured.KhatriRaoOmega directly")
-    if heads is not None and (not carries_omega(method, dist) or left):
-        raise ValueError("heads= batches Omega-carrying right sketches only "
-                         "(a non-fused method, no left sketch)")
+    if heads is not None and (left or dist in ("srht", "khatri_rao")):
+        raise ValueError("heads= batches right sketches only (no left "
+                         "sketch, no structured dist)")
     dev = resolve_device(device)
     key_omega = _kf.key_pair(key)
     omega = None
@@ -258,9 +263,15 @@ def _sketch_rows(state: SketchState, a_block: torch.Tensor) -> torch.Tensor:
         return _sx.srht_sketch(state.key_omega, a_block, state.p,
                                device=state.device)
     if state.method == "shgemm_fused":
+        kw = dict(dist=state.dist, omega_dtype=state.omega_dtype,
+                  s=_omega_s(state), col_offset=state.col_base)
+        if a_block.ndim == 3:            # heads: head h at Omega row h*n_cols
+            return torch.stack([
+                fused_at_row_offset(a, state.key_omega, state.p,
+                                    h * state.n_cols, **kw)
+                for h, a in enumerate(a_block)])
         return ops.shgemm_fused(a_block, state.key_omega, state.p,
-                                dist=state.dist, omega_dtype=state.omega_dtype,
-                                col_offset=state.col_base, device=state.device)
+                                device=state.device, **kw)
     return proj.project(a_block, state.omega, method=state.method,
                         device=state.device)
 

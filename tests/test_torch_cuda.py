@@ -967,3 +967,72 @@ def test_moe_block_on_card_matches_cpu(gen, act):
     assert torch.equal(sets[0], sets[1])
     tol = dict(rtol=1e-5, atol=1e-6) if act == "float32" else dict(rtol=2e-2, atol=2e-3)
     torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def _mla_layer(cfg):
+    """The smoke deepseek's prelude MLA leaves, scaled up so that the
+    attention is far from uniform."""
+    return {k[len("pre0/"):]: v * (1.0 if k.endswith("kv_norm") else 10.0)
+            for k, v in launch.init_weights(cfg, seed=0, device="cpu").items()
+            if k.startswith("pre0/mla/")}
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+def test_mla_cached_branch_on_card_matches_cpu(gen, act, chunk):
+    """MLA's cached branch on the card against the CPU: 16 tokens at
+    positions 4..19 of a 24-row bf16 latent cache, in chunks of ``chunk``
+    rows (1: the absorbed decode step), outputs at rtol 1e-5 / atol 1e-5
+    in f32 and 2e-2 / 2e-2 in bf16, the written cache rows alike."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla
+    cfg = smoke_config(R.get_arch("deepseek-v2-lite-16b")).with_(activation_dtype=act)
+    m, dt = cfg.mla, getattr(torch, act)
+    p = _mla_layer(cfg)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 16, cfg.d_model), generator=g).to(dt)
+    cache0 = {"ckv": torch.randn((2, 24, m.kv_lora_rank), generator=g),
+              "kr": torch.randn((2, 24, m.qk_rope_dim), generator=g)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        cache = {k: v.to(dev, torch.bfloat16) for k, v in cache0.items()}
+        for v in cache.values():
+            v[:, 4:] = 0
+        outs = []
+        for start in range(0, 16, chunk):
+            end = min(start + chunk, 16)
+            pos = torch.arange(4 + start, 4 + end, device=dev)
+            o, _ = mla.mla_block(cfg, pd, x[:, start:end].to(dev), positions=pos,
+                                 rope=L.rope_tables(pos, m.qk_rope_dim, cfg.rope_theta),
+                                 cache=cache, write_pos=4 + start, return_cache=False)
+            outs.append(o)
+        out[dev] = (torch.cat(outs, dim=1), cache)
+    tol = dict(rtol=1e-5, atol=1e-5) if act == "float32" else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], **tol)
+    for name in ("ckv", "kr"):
+        torch.testing.assert_close(out["cuda"][1][name].float().cpu(),
+                                   out["cpu"][1][name].float(), rtol=1e-2, atol=1e-2)
+
+
+def test_deepseek_prefill_and_decode_on_card_match_cpu(gen):
+    """The smoke deepseek-v2-lite in f32 with ``use_flash_kernel`` set:
+    make_prefill_step (MLA materialized) and one absorbed decode step on the
+    card against the CPU at 1e-4; the MLA layers launch no kernel 3."""
+    cfg = smoke_config(R.get_arch("deepseek-v2-lite-16b")).with_(
+        activation_dtype="float32", use_flash_kernel=True)
+    params = launch.init_weights(cfg, seed=0, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 13), generator=torch.Generator().manual_seed(3))
+    from repro_torch.models import cache as C
+    out = {}
+    before = k3.launches
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        pre, cache = R.make_prefill_step(cfg)(p, {"tokens": tok[:, :12].to(dev)})
+        dec, _ = R.make_serve_step(cfg)(p, {"tokens": tok[:, 12:].to(dev),
+                                            "cache": C.grow_cache(cache, 1),
+                                            "write_pos": 12})
+        out[dev] = (pre.cpu(), dec.cpu())
+    assert k3.launches == before
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -100,10 +100,11 @@ def test_scheduler_slice_modules_import_without_jax(module):
 
 
 def test_moe_module_imports_without_jax():
-    """The routed experts' module and the transformer that reaches it, each
-    imported alone in a fresh interpreter, load no jax and nothing of the
-    reference."""
-    for module in ("repro_torch.models.moe", "repro_torch.models.transformer"):
+    """The routed experts' module, MLA's and the transformer that reaches
+    them, each imported alone in a fresh interpreter, load no jax and
+    nothing of the reference."""
+    for module in ("repro_torch.models.moe", "repro_torch.models.mla",
+                   "repro_torch.models.transformer"):
         code = (f"import sys\n"
                 f"import {module}\n"
                 f"assert 'jax' not in sys.modules\n"
@@ -210,6 +211,11 @@ ENTRY_POINTS = {
                                                         compute_dtype=True, **d),
     "launch.serve moe": lambda **d: launch.main(
         ["--smoke", "--arch", "qwen3-moe-30b-a3b", "--requests", "1",
+         "--slots", "1", "--max-seq", "16", "--prompt-len", "4",
+         "--max-new", "2", "--kv-rank", "4"]
+        + (["--device", d["device"]] if d else [])),
+    "launch.serve deepseek": lambda **d: launch.main(
+        ["--smoke", "--arch", "deepseek-v2-lite-16b", "--requests", "1",
          "--slots", "1", "--max-seq", "16", "--prompt-len", "4",
          "--max-new", "2", "--kv-rank", "4"]
         + (["--device", d["device"]] if d else [])),

@@ -125,9 +125,43 @@ def test_append_errors():
         kv.kv_sketch_append(st, torch.zeros(2, 4, 16), 6)
     with pytest.raises(ValueError, match="n_heads, T, head_dim"):
         kv.kv_sketch_append(st, torch.zeros(4, 16), 0)
-    with pytest.raises(ValueError, match="heads= batches Omega-carrying"):
+    with pytest.raises(ValueError, match="heads= batches right sketches only"):
         stream.init(key_from_seed(1), 16, 4, max_rows=8, method="shgemm_fused",
-                    heads=2, device="cpu")
+                    left=True, heads=2, device="cpu")
+    with pytest.raises(ValueError, match="cannot widen a head-batched state"):
+        kv.kv_sketch_init(key_from_seed(1), 2, 16, 8, 4, method="shgemm_fused",
+                          device="cpu").widen(2)
+
+
+@pytest.mark.parametrize("dist", ["gaussian", "very_sparse"])
+def test_fused_head_batched_sketch_streams_as_one_shot(dist):
+    """``kv_sketch_init(method="shgemm_fused")`` (an option of the
+    reference's): head h hashes Omega's rows [h*hd, (h+1)*hd) in kernel 2
+    (its plain version here).  Rows appended in the engine's 16-row flushes
+    and a ragged tail equal, per head, one kernel-2 call over the whole
+    history at that row offset and its plain version."""
+    from repro_torch.kernels import shgemm_fused as k2
+    hist = torch.tensor(_hist(seed=6))
+    key = key_from_seed(9)
+    if dist == "gaussian":
+        st = kv.kv_sketch_init(key, HEADS, HD, MAX_SEQ, RANK,
+                               method="shgemm_fused", device="cpu")
+    else:
+        st = stream.init(key, HD, kv._sketch_width(RANK, HD), max_rows=MAX_SEQ,
+                         method="shgemm_fused", dist=dist, heads=HEADS,
+                         device="cpu")
+    assert st.omega is None and tuple(st.y.shape) == (HEADS, MAX_SEQ, st.p)
+    for start, n in ((0, 16), (16, 16), (32, 5), (37, 11)):
+        st = kv.kv_sketch_append(st, hist[:, start:start + n], start)
+    s = k2._resolve_s(dist, None, HD)
+    for h in range(HEADS):
+        one = stream.state.fused_at_row_offset(hist[h], key, st.p, h * HD,
+                                               dist=dist, s=s)
+        plain = k2.shgemm_fused_plain(hist[h], key, st.p, dist=dist, s=s,
+                                      row_offset=h * HD)
+        torch.testing.assert_close(st.y[h], one, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(st.y[h], plain, rtol=1e-6, atol=1e-6)
+    assert not torch.equal(st.y[0], st.y[1])          # heads on other rows
 
 
 class _RecordingEngine(Engine):

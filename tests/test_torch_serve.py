@@ -17,7 +17,10 @@ decode against the reference's at the qwen3 test's 1e-4, and gemma2 the f32
 engine lockstep past its 16-row window, compressed.  The routed-MoE arch
 (qwen3-moe) holds chunked prefill to the reference's token-by-token prefill
 over the pool at 8 slots (dropless) and at 16 (the pool's capacity drops
-pairs), and its f32 engine lockstep, compressed."""
+pairs), and its f32 engine lockstep, compressed.  deepseek-v2-lite (MLA
+latents and routed experts) holds the same chunked prefill at 8 and 16
+slots, the masked decode's restore of the other slots' latent rows, its
+latent sketches and the refusal of a compression ratio."""
 
 import math
 
@@ -172,11 +175,15 @@ def test_engine_matches_reference_gemma2():
 MOE = "qwen3-moe-30b-a3b"
 
 
-def _moe_pair():
-    """The f32 smoke qwen3-moe pair with the MoE leaves (router and experts)
-    scaled by 20: at the init scale the routed experts barely move the
-    residual stream, and a dropped pair would change the logits by ~1e-6."""
-    ref_cfg, cfg, ref_params, _ = _pair("float32", MOE)
+DEEPSEEK = "deepseek-v2-lite-16b"
+
+
+def _moe_pair(arch=MOE):
+    """The f32 smoke pair of a routed-MoE arch with the MoE leaves (router
+    and experts) scaled by 20: at the init scale the routed experts barely
+    move the residual stream, and a dropped pair would change the logits by
+    ~1e-6."""
+    ref_cfg, cfg, ref_params, _ = _pair("float32", arch)
     ref_params = {k: (20 * v if "/moe/" in k else v) for k, v in ref_params.items()}
     params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
                                    cfg)
@@ -185,32 +192,41 @@ def _moe_pair():
 
 @pytest.fixture(scope="module")
 def moe_ref_prefill():
-    """The reference's slot prefill token by token, 40 tokens into slot 5
-    of 8 and into slot 9 of 16 (slot 0 holding 12 rows of its own): the
-    logits after each token and the model step."""
-    ref_cfg, cfg, ref_params, params = _moe_pair()
-    tok = np.random.default_rng(5).integers(1, cfg.vocab, 52).tolist()
-    out = {}
-    for slots, slot in ((8, 5), (16, 9)):
-        ref = RefModelStep(ref_cfg, ref_params, slots=slots, max_seq=48)
-        ref.prefill_rows(0, tok[40:], 0)
-        out[slots] = (slot, [np.asarray(ref.prefill_rows(slot, [t], i))
-                             for i, t in enumerate(tok[:40])], ref)
-    return cfg, params, tok, out
+    """For each arch, once: the reference's slot prefill token by token, 40
+    tokens into slot 5 of 8 and into slot 9 of 16 (slot 0 holding 12 rows
+    of its own): the logits after each token and the model step."""
+    runs = {}
+
+    def get(arch):
+        if arch not in runs:
+            ref_cfg, cfg, ref_params, params = _moe_pair(arch)
+            tok = np.random.default_rng(5).integers(1, cfg.vocab, 52).tolist()
+            out = {}
+            for slots, slot in ((8, 5), (16, 9)):
+                ref = RefModelStep(ref_cfg, ref_params, slots=slots, max_seq=48)
+                ref.prefill_rows(0, tok[40:], 0)
+                out[slots] = (slot, [np.asarray(ref.prefill_rows(slot, [t], i))
+                                     for i, t in enumerate(tok[:40])], ref)
+            runs[arch] = (cfg, params, tok, out)
+        return runs[arch]
+    return get
 
 
-@pytest.mark.parametrize("chunk", [1, 5, 16, 40])
-@pytest.mark.parametrize("slots", [8, 16])
+@pytest.mark.parametrize("arch,slots,chunk", [
+    pytest.param(arch, slots, chunk,
+                 id=f"{'' if arch == MOE else 'deepseek-'}{slots}-{chunk}")
+    for arch in (MOE, DEEPSEEK) for slots in (8, 16) for chunk in (1, 5, 16, 40)])
 def test_moe_prefill_rows_chunks_match_reference_token_by_token(
-        moe_ref_prefill, slots, chunk):
+        moe_ref_prefill, arch, slots, chunk):
     """Chunked prefill_rows against the reference's token-by-token prefill
     over the pool: logits at each chunk's end within 1e-4, every cache leaf
-    within 1e-5.  At 8 slots the pool's capacity (8) holds every pair and a
-    chunk runs as one dropless step; at 16 it is 8 of 16 tokens, slot 9's
-    pairs drop as the other slots route, and the port runs the pool token by
-    token: a lone slot prefilled without drops misses the reference's
-    logits."""
-    cfg, params, tok, out = moe_ref_prefill
+    within 1e-2 (a bf16 cache).  At 8 slots the pool's capacity (8) holds
+    every pair and a chunk runs as one dropless step; at 16 it is 8 of 16
+    tokens, slot 9's pairs drop as the other slots route, and the port runs
+    the pool token by token: a lone slot prefilled without drops misses the
+    reference's logits.  deepseek's chunks run MLA's cached branch over a
+    chunk; its 16-slot pool steps must restore slot 0's latent rows."""
+    cfg, params, tok, out = moe_ref_prefill(arch)
     slot, want, ref = out[slots]
     port = ModelStep(cfg, params, slots=slots, max_seq=48, device="cpu")
     port.prefill_rows(0, tok[40:], 0)
@@ -229,6 +245,102 @@ def test_moe_prefill_rows_chunks_match_reference_token_by_token(
     alone = lone.prefill_rows(0, tok[:40], 0).numpy()
     differs = np.abs(alone - want[-1]).max() > 1e-4
     assert differs == (slots > 8)
+
+
+def test_deepseek_masked_decode_keeps_other_slots_latents():
+    """A masked decode step at a clock inside another slot's live history:
+    the masked slot's logits match the reference's, the masked-out slot's
+    ckv/kr rows at the clock keep their values, and every latent leaf
+    matches the reference's cache."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", DEEPSEEK)
+    ref = RefModelStep(ref_cfg, ref_params, slots=3, max_seq=32)
+    port = ModelStep(cfg, params, slots=3, max_seq=32, device="cpu")
+    tok = np.random.default_rng(6).integers(1, cfg.vocab, 30).tolist()
+    for slot, start, end in ((0, 0, 3), (1, 0, 9), (2, 0, 5), (1, 9, 12)):
+        want = np.asarray(ref.prefill_rows(slot, tok[start:end], start))
+        got = port.prefill_rows(slot, tok[start:end], start).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    clock, mask = 3, np.array([True, False, False])
+    leaves = [(g, layer) for g in ("pre", "scan") for layer in port.cache[g]]
+    before = {(g, i, n): (layer[n][:, :, clock] if g == "scan"
+                          else layer[n][:, clock]).clone()
+              for i, (g, layer) in enumerate(leaves) for n in ("ckv", "kr")}
+    tokens = np.array([[tok[20]], [tok[21]], [tok[22]]], np.int32)
+    want = np.asarray(ref.decode_logits(tokens, clock, slot_mask=mask))
+    got = port.decode_logits(tokens, clock, slot_mask=mask).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for i, (g, layer) in enumerate(leaves):
+        for n in ("ckv", "kr"):
+            row = layer[n][:, :, clock] if g == "scan" else layer[n][:, clock]
+            old = before[(g, i, n)]
+            assert torch.equal(row[..., 1:, :], old[..., 1:, :]), (g, n)
+            assert not torch.equal(row[..., 0, :], old[..., 0, :]), (g, n)
+    assert bool(before[("pre", 0, "ckv")][1].any())    # slot 1's live row
+    for group in ("pre", "scan"):
+        for layer, ref_layer in zip(port.cache[group], ref.cache[group]):
+            assert sorted(layer) == ["ckv", "kr"]
+            for name in layer:
+                np.testing.assert_allclose(layer[name].float().numpy(),
+                                           np.asarray(ref_layer[name], np.float32),
+                                           rtol=1e-2, atol=1e-2)
+
+
+def test_deepseek_latent_sketches():
+    """Rank-4 sketches of the latent cache leaves over prefill chunks and
+    masked decode rows: the same sketch paths and state shapes as the
+    reference's, its kv_bytes_report (nothing swappable), sketch high-water
+    == pos for every slot, and each slot's streamed ckv/kr sketch equal to
+    a fresh one-shot sketch of that slot's history at the slot's key within
+    1e-6 (the per-slot keys are a documented deviation, so the values are
+    not compared with the reference's)."""
+    from repro_torch.serve import kv_compress
+    ref_cfg, cfg, ref_params, params = _pair("float32", DEEPSEEK)
+    kw = dict(slots=2, max_seq=48, kv_sketch_rank=4)
+    ref = RefModelStep(ref_cfg, ref_params, **kw)
+    port = ModelStep(cfg, params, device="cpu", **kw)
+    tok = np.random.default_rng(7).integers(1, cfg.vocab, 40).tolist()
+    for e in (ref, port):
+        for slot in (0, 1):
+            e.begin_slot(slot)
+        for slot, start, end in ((0, 0, 9), (1, 0, 7), (0, 9, 26)):
+            e.prefill_rows(slot, tok[start:end], start)
+        for clock in (26, 27, 28):                    # slot 0 decodes alone
+            e.decode_logits(np.array([[tok[clock]], [0]], np.int32), clock,
+                            slot_mask=np.array([True, False]))
+            e._note_kv_row(0, clock)
+            e.pos[0] = clock + 1
+    assert port._kv_paths == [tuple(p) for p in ref._kv_paths]
+    assert {p[2] for p in port._kv_paths} == {"ckv", "kr"}
+    assert port.kv_bytes_report() == ref.kv_bytes_report()
+    assert port.kv_bytes_report()["dense_bytes"] == 0
+    for slot in (0, 1):
+        port._flush_kv_pending(slot)
+        ref._flush_kv_pending(slot)
+        pos = int(port.pos[slot])
+        assert port._kv_next_row[slot] == pos and port._kv_contig[slot]
+        for j, path in enumerate(port._kv_paths):
+            state = port._kv_sketches[slot][path]
+            assert tuple(state.y.shape) == ref._kv_sketches[slot][path].y.shape
+            assert state.rows_seen == pos
+            hist = port._kv_leaf_rows(path, slot, 0, pos)
+            fresh = kv_compress.kv_sketch_init(
+                port._slot_key(slot, j), hist.shape[0], hist.shape[-1], 48, 4,
+                device="cpu")
+            fresh = kv_compress.kv_sketch_append(fresh, hist, 0)
+            np.testing.assert_allclose(state.y.numpy(), fresh.y.numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=str(path))
+            assert bool(state.y[:, :pos].any()) and not state.y[:, pos:].any()
+
+
+def test_deepseek_refuses_a_compression_ratio():
+    """MLA latents are not swappable: a compression ratio raises in both
+    packages."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", DEEPSEEK)
+    kw = dict(slots=2, max_seq=32, kv_sketch_rank=4, kv_compress_ratio=2.0)
+    with pytest.raises(ValueError, match="no full-context attention k/v leaves"):
+        RefModelStep(ref_cfg, ref_params, **kw)
+    with pytest.raises(ValueError, match="no full-context attention k/v leaves"):
+        ModelStep(cfg, params, device="cpu", **kw)
 
 
 def test_moe_engine_matches_reference_f32():

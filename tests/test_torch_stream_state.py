@@ -275,9 +275,9 @@ def test_init_and_update_errors():
         stream.init(KEY, 8, 4, max_rows=4, left=True, dist="srht", device="cpu")
     with pytest.raises(ValueError, match="tensor-mode family"):
         stream.init(KEY, 8, 4, max_rows=4, dist="khatri_rao", device="cpu")
-    with pytest.raises(ValueError, match="heads="):
-        stream.init(KEY, 8, 4, max_rows=4, heads=2, method="shgemm_fused",
-                    device="cpu")
+    for kw in (dict(dist="srht"), dict(left=True, method="shgemm_fused")):
+        with pytest.raises(ValueError, match="heads="):
+            stream.init(KEY, 8, 4, max_rows=4, heads=2, device="cpu", **kw)
     a = torch.from_numpy(_a(32, 64))
     st = stream.init(KEY, 48, 8, max_rows=96, device="cpu")
     with pytest.raises(ValueError, match="64 columns.*48"):

@@ -190,7 +190,6 @@ def test_grow_cache_pads_kv_rows_only():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("deepseek-v2-lite-16b", "MLA"),
     ("recurrentgemma-2b", "recurrent"), ("xlstm-350m", "recurrent"),
     ("whisper-large-v3", "enc-dec"), ("llava-next-34b", "VLM")])
 def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
