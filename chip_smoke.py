@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 850–950 s on an H100, the build included).
+(about 800–1200 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -171,6 +171,31 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    latents streamed through kernel 2 (``kv_sketch_init(method=
    "shgemm_fused")``) in 16-row flushes, bit for bit its one-shot sketch,
    against the plain version, timed; the phase within 150 s.
+16. the recurrent mixers at full width and depth, random bf16 weights from a
+   seed, after phase 15's model is freed: recurrentgemma-2b (26 layers:
+   RG-LRU, RG-LRU, local attention of window 2048; 5.79 GB): (16a) a (1,
+   8192) ``make_prefill_step`` (the rings wrap four times), two calls, peak
+   memory, one decode step on its cache against a full forward over 8193
+   (0.15, correlation > 0.99), a 1024-token prompt through ``prefill_rows``
+   in one chunk and in chunks of 256 and its first 128 tokens one at a time
+   (the bf16 gate), the f32 first period (R, R, A) on 1024 tokens on the
+   card against the CPU; (16b) the scheduler, 8 slots x 8192 with rank-32
+   rolling sketches, 10 requests at 200 req/s (virtual), two past the
+   window, chunks of 512: every request accounted, and each request of a
+   reused slot's calls replayed in a fresh pool within the bf16 gate;
+   (16e) a drained slot's window on one local layer (2048 x 256) streamed
+   through kernel 2's rolling sketch in 16-row flushes, bit for bit the
+   one-shot sketch, against the plain version, timed; then xlstm-350m (24
+   layers: 7 mLSTM + 1 sLSTM; 1.04 GB): (16c) a (1, 4096) prefill, one
+   sLSTM layer's time loop timed on 1024 tokens, grow_cache + one decode
+   step against a
+   full forward, the chunked and token-by-token prefill, the f32 first
+   period (7 mLSTM + sLSTM) on 512 tokens against the CPU, and an engine of
+   8 slots x 2048 with 10 staggered prompts of 256 (slots reused after idle
+   decode steps), each request's greedy tokens equal to its lone run; (16d)
+   a long_500k decode step of each model on a cache built for 524288 rows
+   (its bytes == ``cache_bytes``) beside the same step at write_pos 4095;
+   the phase within 150 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -3743,6 +3768,590 @@ def _phase15(torch, dev, card) -> dict:
     return out
 
 
+REC_RG, REC_XL = "recurrentgemma-2b", "xlstm-350m"
+RG_PREFILL_SEQ = 8192                   # 16a: four windows of 2048
+REC_CHUNK_PROMPT, REC_CHUNK, REC_STEPWISE = 1024, 256, 128   # 16a, 16c
+REC_F32_SEQ = {REC_RG: 1024, REC_XL: 512}       # the f32 first period, card vs CPU
+REC_F32_TOL = 1e-4                      # |card - CPU| <= 1e-4 (1 + |CPU|) elementwise
+RG_MODEL = dict(slots=8, max_seq=8192, kv_sketch_rank=32)   # 16b: 2048-row rings
+RG_SCHED = {"prefill_chunk": 512, "max_queue": 64,          # 16b
+            "trace": dict(seed=1, n_requests=10, arrival_rate=200.0,
+                          prompt_short=(256, 1024), prompt_long=(3000, 5000),
+                          long_frac=0.25, max_new_range=(32, 64))}
+XL_PREFILL_SEQ = 4096                   # 16c
+XL_ENGINE_KW = dict(slots=8, max_seq=2048)                  # 16c engine
+XL_PROMPTS, XL_PROMPT_LEN, XL_MAX_NEW = 10, 256, 48
+XL_SUBMIT_AT = (0, 4, 8, 12, 16, 20, 24, 28, 60, 70)        # engine steps
+LONG_SEQ = 524288                       # 16d: long_500k
+PHASE16_LIMIT_S = 150.0
+
+
+def phase16_recurrent(torch, dev, card) -> dict:
+    """Phase 16: the recurrent mixers at full width and depth: (16a)
+    recurrentgemma-2b's prefill, decode and chunked prefill, its f32 first
+    period on the card against the CPU; (16b) the scheduler on it, each
+    request of a reused slot against the same calls in a fresh pool; (16c)
+    xlstm-350m's prefill, decode, chunked prefill, f32 first period and
+    staggered engine; (16d) a long_500k decode step of each; (16e) a
+    drained 16b window through kernel 2's rolling sketch."""
+    with torch.inference_mode():       # serving: no autograd bookkeeping
+        return _phase16(torch, dev, card)
+
+
+def rec_weights(torch, dev, cfg):
+    """Random f32 masters from seed 0, their bf16 compute cast, and clones
+    of the f32 leaves the first period needs (the f32 masters are freed)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import transformer as T
+    masters = launch.init_weights(cfg, seed=0, device=dev)
+    first = {k: (v[:1] if k.startswith("layers/") else v).clone()
+             for k, v in masters.items()
+             if k.startswith("layers/") or k == "embed/tokens"}
+    weights = T.cast_params_for_compute(cfg, masters)
+    del masters
+    torch.cuda.synchronize()
+    return weights, first
+
+
+def first_period_f32(torch, dev, cfg, first, tokens):
+    """The f32 forward of the first period (embedding, then one period of
+    layers through ``apply_stack``) on the card and on the CPU, from the
+    same f32 weights and embedded input: (card, CPU) hidden states."""
+    from repro_torch.models import transformer as T
+    cut = cfg.with_(n_layers=cfg.period, activation_dtype="float32")
+    x = T.embed_tokens(cut, first, tokens)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        p = {k: v.to(d) for k, v in first.items() if k.startswith("layers/")}
+        pos = torch.arange(x.shape[1], device=d)
+        y, _ = T.apply_stack(cut, p, x.to(d), positions=pos,
+                             ropes=T.rope_tables(cut, pos), cache=None,
+                             write_pos=0, return_cache=False)
+        outs.append(y.cpu())
+    return outs
+
+
+def f32_period_agree(torch, got, want):
+    """max |card - CPU| and whether every element is within
+    REC_F32_TOL * (1 + |CPU|)."""
+    d = (got - want).abs()
+    return d.max().item(), bool((d <= REC_F32_TOL * (1 + want.abs())).all())
+
+
+def prefill_rows_runs(torch, dev, kcfg, weights, prompt):
+    """A prompt through ModelStep.prefill_rows (8 slots, slot 0) in one
+    chunk, in chunks of REC_CHUNK, its first REC_STEPWISE tokens in one
+    chunk and one token at a time: the logits at each call's end and each
+    run's wall ms."""
+    from repro_torch.serve.model_step import ModelStep
+    runs = {}
+    for label, chunk, n in (("one chunk", len(prompt), len(prompt)),
+                            ("chunks", REC_CHUNK, len(prompt)),
+                            ("head", REC_STEPWISE, REC_STEPWISE),
+                            ("token by token", 1, REC_STEPWISE)):
+        m = ModelStep(kcfg, weights, device=dev, slots=8, max_seq=len(prompt))
+        seen = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, n, chunk):
+            seen[start + chunk] = m.prefill_rows(0, prompt[start:start + chunk],
+                                                 start)
+        torch.cuda.synchronize()
+        runs[label] = (seen, (time.perf_counter() - t0) * 1e3)
+        del m
+    n = len(prompt)
+    full = logits_agree(torch, runs["chunks"][0][n][None],
+                        runs["one chunk"][0][n][None], "bfloat16", 5e-2)
+    head = logits_agree(torch, runs["token by token"][0][REC_STEPWISE][None],
+                        runs["head"][0][REC_STEPWISE][None], "bfloat16", 5e-2)
+    return {k: v[1] for k, v in runs.items()}, full, head
+
+
+def decode_vs_forward(torch, kcfg, weights, cache, tokens, s):
+    """One serve step of token s on ``cache`` against a full forward over
+    s + 1 tokens: (ok, max |d|, correlation, step ms)."""
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = R.make_serve_step(kcfg)(weights, {
+        "tokens": tokens[:, s:s + 1], "cache": cache, "write_pos": s})
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3
+    want = R._final_logits(kcfg, T.forward(kcfg, weights, tokens[:, :s + 1],
+                                           last_only=True).logits[:, -1])
+    corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+    diff = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=0.15, atol=0.15)) and corr > 0.99
+    return ok, diff, corr, t_dec
+
+
+def record_slot_calls(model_step_cls):
+    """Wrap ModelStep's begin_slot, prefill_rows and decode_logits (on the
+    class, so that run_scheduler's own wrappers call through them): each
+    slot's tenants numbered from 1, and every call a tenant's rows went
+    through, in order, as (kind, position, tokens, logits); logits are kept
+    for the second and later tenants of a slot.  Returns (calls, restore)."""
+    import numpy as np
+    calls, tenant = {}, {}
+    orig = {name: getattr(model_step_cls, name)
+            for name in ("begin_slot", "prefill_rows", "decode_logits")}
+
+    def begin_slot(self, slot):
+        tenant[slot] = tenant.get(slot, 0) + 1
+        calls[(slot, tenant[slot])] = []
+        return orig["begin_slot"](self, slot)
+
+    def prefill_rows(self, slot, tokens, start):
+        out = orig["prefill_rows"](self, slot, tokens, start)
+        calls[(slot, tenant[slot])].append(
+            ("prefill", int(start), [int(t) for t in tokens],
+             out.clone() if tenant[slot] > 1 else None))
+        return out
+
+    def decode_logits(self, tokens, write_pos, slot_mask=None):
+        out = orig["decode_logits"](self, tokens, write_pos, slot_mask=slot_mask)
+        for s in np.flatnonzero(np.asarray(slot_mask, bool)):
+            calls[(int(s), tenant[int(s)])].append(
+                ("decode", int(write_pos), [int(np.asarray(tokens)[s, 0])],
+                 out[s].clone() if tenant[int(s)] > 1 else None))
+        return out
+
+    for name, fn in (("begin_slot", begin_slot), ("prefill_rows", prefill_rows),
+                     ("decode_logits", decode_logits)):
+        setattr(model_step_cls, name, fn)
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(model_step_cls, name, fn)
+    return calls, restore
+
+
+def replay_tenant(torch, dev, kcfg, weights, slot, calls) -> tuple:
+    """One tenant's calls again in a fresh pool of RG_MODEL, the slot begun
+    once: (worst correlation, worst bf16 excess, calls bit-equal, calls)."""
+    import numpy as np
+    from repro_torch.serve.model_step import ModelStep
+    m = ModelStep(kcfg, weights, device=dev, **RG_MODEL)
+    m.begin_slot(slot)
+    mask = np.arange(m.slots) == slot
+    agree, equal = [], 0
+    for kind, pos, toks, want in calls:
+        if kind == "prefill":
+            got = m.prefill_rows(slot, toks, pos)
+        else:
+            t8 = np.zeros((m.slots, 1), np.int32)
+            t8[slot, 0] = toks[0]
+            got = m.decode_logits(t8, pos, slot_mask=mask)[slot]
+            m.pos[slot] = pos + 1
+        agree.append(bf16_agreement(torch, got[None], want[None]))
+        equal += bool(torch.equal(got, want))
+    del m
+    return (min(c for c, _ in agree), max(e for _, e in agree), equal,
+            len(calls))
+
+
+def lone_engine_run(torch, dev, cfg, weights, prompt, slot):
+    """``prompt`` served alone by a fresh Engine(**XL_ENGINE_KW), admitted
+    into ``slot`` as the engine admits: its greedy tokens and each step's
+    logits of the slot."""
+    from repro_torch.serve.engine import Engine, Request
+    eng = Engine(cfg, weights, device=dev, **XL_ENGINE_KW)
+    req = Request(rid=0, prompt=list(prompt), max_new=XL_MAX_NEW)
+    eng.active[slot] = req
+    logits = eng._prefill_slot(slot, req.prompt, 0)
+    eng.pos[slot] = len(req.prompt)
+    req.out.append(int(torch.argmax(logits)))
+    while eng.active[slot] is not None:
+        eng.step()
+    return req.out
+
+
+def _phase16(torch, dev, card) -> dict:
+    from repro_torch import stream
+    from repro_torch.core import projection as proj
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_compress
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.model_step import ModelStep
+    from repro_torch.stream.state import fused_at_row_offset
+    t_phase = time.perf_counter()
+    out, sub = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(1616)
+
+    # -- 16a: recurrentgemma-2b --------------------------------------------
+    t_sub = time.perf_counter()
+    cfg = R.get_arch(REC_RG)
+    kcfg = cfg.with_(use_flash_kernel=True)      # as the serve CLI sets it
+    window = next(sp.window for sp in cfg.pattern if sp.window)
+    t0 = time.perf_counter()
+    weights, first = rec_weights(torch, dev, cfg)
+    nbytes = sum(w.numel() * w.element_size() for w in weights.values())
+    print(f"[rec] {cfg.name}: {T.param_count(cfg) / 1e9:.3f} B parameters at the "
+          f"published widths ({cfg.n_layers} layers in the pattern RG-LRU, RG-LRU, "
+          f"local MQA attention (window {window}); d_model {cfg.d_model}, d_rnn "
+          f"{cfg.rnn.d_rnn}, conv {cfg.rnn.conv_width}, {cfg.n_heads}|{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), f32 masters "
+          f"from seed 0 cast to bf16 once: {nbytes / 1e9:.2f} GB in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    tokens = torch.randint(0, cfg.vocab, (1, RG_PREFILL_SEQ + 1), generator=gen,
+                           device=dev)
+    check(RG_PREFILL_SEQ % window == 0,
+          "16a: the prefill's last window is not the ring of its decode position")
+    torch.cuda.reset_peak_memory_stats()
+    k3.launches = k4.launches = 0
+    walls = []
+    for _ in range(2):
+        cache = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = launch.run_prefill(kcfg, weights, tokens[:, :RG_PREFILL_SEQ])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ring = tuple(cache["scan"][2]["k"].shape)
+    check(bool(torch.isfinite(logits).all()), "16a: prefill logits not finite")
+    check(ring == (cfg.n_scan_periods, 1, window, cfg.n_kv_heads, cfg.head_dim),
+          f"16a: local layers' cache {ring}")
+    # the last window of 8192 tokens is the ring of write_pos 8192 (8192 %
+    # 2048 == 0): the decode writes into it in place, no grow_cache
+    ok, diff, corr, t_dec = decode_vs_forward(torch, kcfg, weights, cache, tokens,
+                                              RG_PREFILL_SEQ)
+    print(f"[rec] 16a {cfg.name} (1, {RG_PREFILL_SEQ}) make_prefill_step (the rings "
+          f"wrap {RG_PREFILL_SEQ // window} times): first call {walls[0]:.1f} ms, "
+          f"second {walls[1]:.1f} ms, peak memory {peak:.2f} GiB; local cache {ring}, "
+          f"state leaves {sorted(cache['scan'][0])}; kernel 3 / 4 launches "
+          f"{k3.launches} / {k4.launches} (windowed layers attend through "
+          f"layers.attention); then one decode step at write_pos {RG_PREFILL_SEQ} "
+          f"on that cache ({t_dec:.1f} ms) vs a full forward over "
+          f"{RG_PREFILL_SEQ + 1}: max|d| {diff:.3e}, correlation {corr:.6f} (rtol = "
+          f"atol = 0.15, correlation > 0.99) [{card}]")
+    check(ok, "16a: prefill + decode disagrees with the full forward")
+    out["16a"] = {"ms_first": walls[0], "ms_second": walls[1], "peak_gib": peak,
+                  "decode_max_diff": diff, "decode_corr": corr, "ms_decode": t_dec}
+    del cache, logits
+
+    prompt = tokens[0, :REC_CHUNK_PROMPT].tolist()
+    ms, (ok_full, msg_full), (ok_head, msg_head) = prefill_rows_runs(
+        torch, dev, kcfg, weights, prompt)
+    print(f"[rec] 16a a {REC_CHUNK_PROMPT}-token prompt through ModelStep."
+          f"prefill_rows (8 slots) in one chunk ({ms['one chunk']:.1f} ms) and in "
+          f"chunks of {REC_CHUNK} ({ms['chunks']:.1f} ms): last logits {msg_full}; "
+          f"its first {REC_STEPWISE} tokens one at a time "
+          f"({ms['token by token']:.1f} ms) against one chunk of them: {msg_head} "
+          f"[{card}]")
+    check(ok_full, "16a: chunked prefill disagrees with the one-chunk prefill")
+    check(ok_head, "16a: token-by-token prefill disagrees with one chunk")
+    out["16a"].update({f"ms_{k.replace(' ', '_')}": v for k, v in ms.items()})
+
+    s32 = REC_F32_SEQ[REC_RG]
+    t0 = time.perf_counter()
+    got, want = first_period_f32(torch, dev, cfg, first, tokens[:, :s32])
+    diff, ok = f32_period_agree(torch, got, want)
+    print(f"[rec] 16a f32 first period (RG-LRU, RG-LRU, local attention) at full "
+          f"width on {s32} tokens, card vs CPU (the code the CPU tests hold to the "
+          f"reference): max|d| {diff:.3e} at |h| max {want.abs().max().item():.1f} "
+          f"(|d| <= {REC_F32_TOL} (1 + |h|)), {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    check(ok, "16a: the card's f32 first period disagrees with the CPU's")
+    out["16a"]["f32_period_max_diff"] = diff
+    del first, got, want
+    sub["16a"] = time.perf_counter() - t_sub
+
+    # -- 16b: the scheduler, reused slots against a fresh pool -------------
+    t_sub = time.perf_counter()
+    trace = cell_trace(RG_SCHED, cfg.vocab)
+    calls, restore = record_slot_calls(ModelStep)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = launch.run_scheduler(kcfg, weights, trace,
+                                   prefill_chunk=RG_SCHED["prefill_chunk"],
+                                   max_queue=RG_SCHED["max_queue"], device=dev,
+                                   **RG_MODEL)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ, kinds = res["summary"], res["step_kinds"]
+    acct = summ["accounting"]
+    sch = res["scheduler"]
+    m = sch.model
+    dec = sorted(t for t, (p, d) in zip(res["step_ms"], kinds) if d and not p)
+    single = sum(p for p, _ in kinds)
+    longs = sum(1 for r in trace if len(r.prompt) > window)
+    reused = sorted(key for key in calls if key[1] > 1)
+    t_rep = time.perf_counter()
+    replays = {key: replay_tenant(torch, dev, kcfg, weights, key[0], calls[key])
+               for key in reused}
+    t_rep = time.perf_counter() - t_rep
+    print(f"[rec] 16b scheduler, {m.slots} slots x {m.max_seq} rows ({window}-row "
+          f"rings, rank-{m.kv_sketch_rank} rolling sketches on "
+          f"{len(m._kv_roll_paths)} ring paths), prefill_chunk "
+          f"{RG_SCHED['prefill_chunk']}; trace {RG_SCHED['trace']} ({longs} prompts "
+          f"past the window): {res['tokens']} tokens in {res['seconds']:.2f} s wall "
+          f"({res['tokens_per_s']:.1f} tok/s); {res['steps']} scheduler steps, "
+          f"{single} single-slot prefill and catch-up calls, "
+          f"{sum(d for _, d in kinds)} batched decode steps (median decode-only step "
+          f"{dec[len(dec) // 2] if dec else float('nan'):.2f} ms over {len(dec)}); "
+          f"peak memory {peak:.2f} GiB; accounting {acct} [{card}]")
+    print(f"[rec] 16b virtual clock: TTFT p50 / p99 {summ['ttft_p50_s']:.4f} / "
+          f"{summ['ttft_p99_s']:.4f} s, TPOT p50 / p99 {summ['tpot_p50_s']:.5f} / "
+          f"{summ['tpot_p99_s']:.5f} s, latency p50 / p99 {summ['latency_p50_s']:.4f} "
+          f"/ {summ['latency_p99_s']:.4f} s; reused slots (slot, tenant): "
+          + "; ".join(f"{key} {n} calls, {eq} bit-equal to a fresh pool's, corr "
+                      f">= {c:.7f}, excess {e:.2f} ulp" for key, (c, e, eq, n)
+                      in replays.items())
+          + f" ({t_rep:.1f} s to replay) [{card}]")
+    check(acct["unaccounted"] == 0 and acct["in_flight"] == 0
+          and acct["completed"] + acct["rejected"] == len(trace),
+          f"16b: requests not accounted: {acct}")
+    check(all(0 < len(r.out) <= r.max_new for r in sch.finished),
+          "16b: a finished request has no output or too much")
+    check(len({s for s, _ in reused}) >= 2,
+          f"16b: reused (slot, tenant) {reused}: fewer than 2 slots")
+    check(all(c > 0.9999 and e <= BF16_EXCESS for c, e, _, _ in replays.values()),
+          "16b: a reused slot's request differs from the same calls in a fresh pool")
+    out["16b"] = {"tokens": res["tokens"], "seconds": res["seconds"],
+                  "steps": res["steps"], "single_slot_calls": single,
+                  "peak_gib": peak, "summary": summ,
+                  "median_decode_ms": dec[len(dec) // 2] if dec else None,
+                  "reused": {str(k): v for k, v in replays.items()}}
+    del calls, res
+    sub["16b"] = time.perf_counter() - t_sub
+
+    # -- 16e: a drained window through kernel 2's rolling sketch -----------
+    t_sub = time.perf_counter()
+    slot = int(m.pos.argmax())
+    pos = int(m.pos[slot])
+    j, path = 0, m._kv_roll_paths[0]
+    rows = m._kv_leaf_rows_ring(path, slot, pos - window, window)[:1]   # period 0
+    key = m._kv_roll_key(slot, j)
+    flush = m._kv_flush_every
+    k2.launches = 0
+    state = kv_compress.kv_rolling_init(key, 1, cfg.head_dim, window,
+                                        m.kv_sketch_rank, method="shgemm_fused",
+                                        device=dev)
+    for start in range(0, window, flush):
+        state = kv_compress.kv_rolling_append(state, rows[:, start:start + flush],
+                                              pos - window + start)
+    torch.cuda.synchronize()
+    launches = k2.launches
+    fin = stream.rolling_finalize(state)
+    p_w = state.base.p
+    fresh = stream.update(stream.init(key, cfg.head_dim, p_w, max_rows=window,
+                                      method="shgemm_fused", heads=1, device=dev),
+                          rows.float(), 0)
+    bitwise = torch.equal(fin.y, fresh.y)
+    a = rows[0].float().contiguous()
+    kern = (lambda: fused_at_row_offset(a, state.base.key_omega, p_w, 0))
+    plain = k2.shgemm_fused_plain(a, state.base.key_omega, p_w)
+    err = (kern() - plain).abs().max().item()
+    omega32 = proj.fused_omega(state.base.key_omega, (a.shape[1], p_w),
+                               device=dev).float()
+    t_k, d_k = median_ms(torch, kern), device_ms(torch, kern)
+    t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, state.base.key_omega, p_w))
+    t_l, d_l = median_ms(torch, lambda: torch.matmul(a, omega32)), \
+        device_ms(torch, lambda: torch.matmul(a, omega32))
+    t_b, by = bound_ms(window, a.shape[1], p_w, 2, 0)
+    expected = window // flush
+    print(f"[rec] 16e slot {slot}'s window after the drain (pos {pos}; {path}, "
+          f"period 0: {tuple(rows.shape)}) streamed through kv_rolling_init(method="
+          f"'shgemm_fused') + kv_rolling_append in {flush}-row flushes at its "
+          f"absolute positions: kernel 2 launches {launches} (= {expected} flushes "
+          f"x 1 kv head: {launches == expected}); finalize == the one-shot sketch "
+          f"of the window bit for bit: {bitwise}; kernel vs shgemm_fused_plain max "
+          f"abs err {err:.3e} (rtol 1e-5, atol 1e-4) [{card}]")
+    print(f"[time] shgemm_fused recurrent 16e ({window}x{a.shape[1]} @ "
+          f"{a.shape[1]}x{p_w}, gaussian bf16, 2 terms): kernel {t_k:.4f} ms (device "
+          f"{fmt_dev(d_k)} ms), plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
+          f"{fmt_dev(d_l)} ms), bound {t_b:.4f} ms ({by}) [{card}]")
+    check(launches == expected, f"16e: kernel 2 launches {launches} != {expected}")
+    check(bitwise, "16e: the rolling sketch's finalize != the one-shot window sketch")
+    check(torch.allclose(kern(), plain, rtol=1e-5, atol=1e-4),
+          "16e: kernel 2 disagrees with its plain version")
+    out["16e"] = {"launches": launches, "shape": [window, a.shape[1], p_w],
+                  "max_abs_err": err, "ms": t_k, "device_ms": d_k[0],
+                  "plain_ms": t_p, "library_ms": t_l, "library_device_ms": d_l[0],
+                  "bound_ms": t_b, "bound_by": by}
+    del state, fin, fresh, rows, a, omega32, sch, m
+    sub["16e"] = time.perf_counter() - t_sub
+
+    # -- 16d (recurrentgemma): a long_500k decode step ---------------------
+    long_ms = {}
+
+    def long_decode(name, cfg_, kcfg_, weights_):
+        step = R.make_serve_step(kcfg_)
+        cache = cache_mod.build_cache(cfg_, 1, LONG_SEQ, device=dev)
+        held = sum(leaf.numel() * leaf.element_size() for g in ("pre", "scan", "rem")
+                   for layer in cache[g] or () for leaf in layer.values())
+        want = cache_mod.cache_bytes(cfg_, 1, LONG_SEQ)
+        tok = torch.randint(0, cfg_.vocab, (1, 1), generator=gen, device=dev)
+        walls = {LONG_SEQ - 1: [], 4095: []}
+        for rnd in range(5):                      # the two positions in turns
+            for wp, seen in walls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = step(weights_, {"tokens": tok, "cache": cache,
+                                            "write_pos": wp})
+                torch.cuda.synchronize()
+                if rnd:
+                    seen.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(logits).all()),
+                      f"16d: {name} decode logits at write_pos {wp} not finite")
+        times = {wp: sorted(v)[len(v) // 2] for wp, v in walls.items()}
+        print(f"[rec] 16d {name} long_500k: one decode step on a cache built for "
+              f"max_seq {LONG_SEQ} ({held / 2**20:.2f} MiB; cache_bytes "
+              f"{want / 2**20:.2f} MiB: {held == want}) at write_pos {LONG_SEQ - 1}: "
+              f"{times[LONG_SEQ - 1]:.2f} ms, at write_pos 4095: {times[4095]:.2f} ms "
+              f"(medians of 4, in turns after one round) [{card}]")
+        check(held == want, f"16d: {name} cache {held} B != cache_bytes {want} B")
+        long_ms[name] = {"bytes": held, "ms_500k": times[LONG_SEQ - 1],
+                         "ms_4k": times[4095]}
+
+    long_decode(cfg.name, cfg, kcfg, weights)
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16c: xlstm-350m ----------------------------------------------------
+    t_sub = time.perf_counter()
+    cfg = R.get_arch(REC_XL)
+    kcfg = cfg.with_(use_flash_kernel=True)
+    weights, first = rec_weights(torch, dev, cfg)
+    nbytes = sum(w.numel() * w.element_size() for w in weights.values())
+    print(f"[rec] {cfg.name}: {T.param_count(cfg) / 1e6:.1f} M parameters at the "
+          f"published widths ({cfg.n_layers} layers in the pattern 7 x mLSTM + "
+          f"sLSTM; d_model {cfg.d_model}, {cfg.n_heads} heads, mLSTM width "
+          f"{int(cfg.rnn.mlstm_proj_factor * cfg.d_model)}, conv "
+          f"{cfg.rnn.conv_width}, vocab {cfg.vocab}), bf16 from f32 masters of seed "
+          f"0: {nbytes / 1e9:.2f} GB [{card}]")
+    tokens = torch.randint(0, cfg.vocab, (1, XL_PREFILL_SEQ + 1), generator=gen,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = launch.run_prefill(kcfg, weights, tokens[:, :XL_PREFILL_SEQ])
+    torch.cuda.synchronize()
+    t_pre = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(logits).all()), "16c: prefill logits not finite")
+    # the sLSTM's time loop alone: layer 7 of period 0 on REC_CHUNK_PROMPT
+    # random hidden states
+    h = torch.randn((1, REC_CHUNK_PROMPT, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    p7 = {k[len("layers/p7/"):]: v[0] for k, v in weights.items()
+          if k.startswith("layers/p7/")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec.slstm_block(cfg, p7, h, cache=None, return_cache=False)
+    torch.cuda.synchronize()
+    t_sl = (time.perf_counter() - t0) * 1e3
+    n_sl = sum(1 for sp in cfg.layer_specs() if sp.mixer == "slstm")
+    grown = cache_mod.grow_cache(cache, 1)
+    ok, diff, corr, t_dec = decode_vs_forward(torch, kcfg, weights, grown, tokens,
+                                              XL_PREFILL_SEQ)
+    print(f"[rec] 16c {cfg.name} (1, {XL_PREFILL_SEQ}) make_prefill_step: "
+          f"{t_pre:.1f} ms (first call), peak memory {peak:.2f} GiB, state leaves "
+          f"{sorted(cache['scan'][0])} / {sorted(cache['scan'][7])}; one sLSTM layer's "
+          f"time loop over {REC_CHUNK_PROMPT} tokens {t_sl:.1f} ms "
+          f"({1e3 * t_sl / REC_CHUNK_PROMPT:.1f} us a step; {n_sl} such layers); "
+          f"grow_cache + one decode step ({t_dec:.1f} ms) vs a full forward over "
+          f"{XL_PREFILL_SEQ + 1} (one mLSTM chunk of {XL_PREFILL_SEQ + 1}, the "
+          f"reference's rule): max|d| {diff:.3e}, correlation {corr:.6f} (rtol = "
+          f"atol = 0.15, correlation > 0.99) [{card}]")
+    check(ok, "16c: prefill + decode disagrees with the full forward")
+    out["16c"] = {"ms_prefill": t_pre, "peak_gib": peak, "slstm_layer_ms": t_sl,
+                  "decode_max_diff": diff, "decode_corr": corr, "ms_decode": t_dec}
+    del cache, grown, logits, h
+
+    prompt = tokens[0, :REC_CHUNK_PROMPT].tolist()
+    ms, (ok_full, msg_full), (ok_head, msg_head) = prefill_rows_runs(
+        torch, dev, kcfg, weights, prompt)
+    print(f"[rec] 16c a {REC_CHUNK_PROMPT}-token prompt through ModelStep."
+          f"prefill_rows (8 slots) in one chunk ({ms['one chunk']:.1f} ms) and in "
+          f"chunks of {REC_CHUNK} ({ms['chunks']:.1f} ms): last logits {msg_full}; "
+          f"its first {REC_STEPWISE} tokens one at a time "
+          f"({ms['token by token']:.1f} ms) against one chunk of them: {msg_head} "
+          f"[{card}]")
+    check(ok_full, "16c: chunked prefill disagrees with the one-chunk prefill")
+    check(ok_head, "16c: token-by-token prefill disagrees with one chunk")
+    out["16c"].update({f"ms_{k.replace(' ', '_')}": v for k, v in ms.items()})
+
+    s32 = REC_F32_SEQ[REC_XL]
+    t0 = time.perf_counter()
+    got, want = first_period_f32(torch, dev, cfg, first, tokens[:, :s32])
+    diff, ok = f32_period_agree(torch, got, want)
+    print(f"[rec] 16c f32 first period (7 mLSTM + sLSTM) at full width on {s32} "
+          f"tokens ({s32 // 256} mLSTM chunks), card vs CPU: max|d| {diff:.3e} at "
+          f"|h| max {want.abs().max().item():.1f} (|d| <= {REC_F32_TOL} (1 + |h|)), "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(ok, "16c: the card's f32 first period disagrees with the CPU's")
+    out["16c"]["f32_period_max_diff"] = diff
+    del first, got, want
+
+    # the engine, staggered: requests arrive at XL_SUBMIT_AT steps, so that
+    # slots idle through unmasked decode steps and are reused
+    prompts = launch.make_prompts(XL_PROMPTS, XL_PROMPT_LEN, cfg.vocab, seed=3)
+    eng = Engine(kcfg, weights, device=dev, **XL_ENGINE_KW)
+    reqs = [Request(rid=i, prompt=p, max_new=XL_MAX_NEW) for i, p in enumerate(prompts)]
+    slot_of, steps = {}, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while steps <= XL_SUBMIT_AT[-1] or eng.queue or any(eng.active):
+        for i, at in enumerate(XL_SUBMIT_AT):
+            if at == steps:
+                eng.submit(reqs[i])
+        eng.step()
+        steps += 1
+        for s, r in enumerate(eng.active):
+            if r is not None:
+                slot_of.setdefault(r.rid, s)
+    torch.cuda.synchronize()
+    t_eng = time.perf_counter() - t0
+    tenants = [sum(1 for s in slot_of.values() if s == k) for k in range(eng.slots)]
+    t0 = time.perf_counter()
+    lone = [lone_engine_run(torch, dev, kcfg, weights, r.prompt, slot_of[r.rid])
+            for r in reqs]
+    t_lone = time.perf_counter() - t0
+    same = [r.out == o for r, o in zip(reqs, lone)]
+    print(f"[rec] 16c Engine ({XL_ENGINE_KW}), {XL_PROMPTS} prompts of "
+          f"{XL_PROMPT_LEN} submitted at steps {list(XL_SUBMIT_AT)}, {XL_MAX_NEW} "
+          f"new: {steps} steps in {t_eng:.2f} s; tenants a slot {tenants}; each "
+          f"request's greedy tokens == its lone run in a fresh engine (same slot): "
+          f"{same} ({t_lone:.1f} s for the lone runs) [{card}]")
+    check(all(len(r.out) == XL_MAX_NEW for r in reqs),
+          "16c: the engine did not serve every request to its end")
+    check(max(tenants) >= 2, "16c: no slot was reused")
+    check(all(same), "16c: a request's tokens differ from its lone run")
+    out["16c"].update({"engine_steps": steps, "engine_s": t_eng,
+                       "tenants": tenants})
+    del eng, reqs, lone
+    sub["16c"] = time.perf_counter() - t_sub
+
+    t_sub = time.perf_counter()
+    long_decode(cfg.name, cfg, kcfg, weights)
+    out["16d"] = long_ms
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub["16d"] = time.perf_counter() - t_sub
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[rec] phase 16 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sub.items())
+          + f"); kernel 2 launches in 16e {out['16e']['launches']} (count set to "
+          f"0 before the run) [{card}]")
+    check(out["seconds"] <= PHASE16_LIMIT_S,
+          f"phase 16 took {out['seconds']:.1f} s > {PHASE16_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4167,6 +4776,11 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     mla15 = phase15_mla(torch, dev, card)
 
+    # -- 16. recurrent mixers: recurrentgemma-2b and xlstm-350m -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec16 = phase16_recurrent(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -4201,6 +4815,8 @@ def run(torch) -> int:
     kernels[1]["rolling_launches"] = sched13["13c"]["launches"]
     kernels[1]["mla_launches"] = mla15["15f"]["launches"]
     kernels[1]["mla"] = {"arch": MLA_ARCH, **mla15["15f"]}
+    kernels[1]["recurrent_launches"] = rec16["16e"]["launches"]
+    kernels[1]["recurrent"] = {"arch": REC_RG, **rec16["16e"]}
     kernels[0]["training_launches"]["world_ranks"] = [
         x["launches"] for x in train12["world"]["ranks"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]

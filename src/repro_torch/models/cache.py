@@ -4,8 +4,9 @@
 Cache structure mirrors the stack: {"pre": (...), "scan": (tree_p0, ...),
 "rem": (...)} — scan leaves carry a leading n_scan_periods dim.  Attention
 layers hold (B, S_c, KV, hd) bf16 K/V (S_c = window for local layers);
-recurrent layers hold O(1) state.  The shapes of every mixer are kept (they
-are arithmetic), though the port serves only attention layers.
+recurrent layers hold O(1) state (``STATE_LEAVES``, no seq axis), which
+``reset_slot_state`` returns to the zeros ``build_cache`` gives for a slot's
+new tenant.
 """
 
 from __future__ import annotations
@@ -17,6 +18,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.device import resolve_device
+
+
+# the recurrent mixers' state leaves (rglru: h, conv; mlstm: c, n, conv;
+# slstm: h, c, n): O(1) in sequence length, no seq axis
+STATE_LEAVES = ("h", "conv", "c", "n")
 
 
 def _layer_cache_defs(cfg: ModelCfg, spec: LayerSpec, batch: int, seq: int):
@@ -108,17 +114,30 @@ def build_kv_factors(cfg: ModelCfg, batch: int, seq: int, rank: int, *,
         _zeros(device))
 
 
+def reset_slot_state(cache: dict, slot: int) -> None:
+    """Zero ``slot``'s batch row of every recurrent-state leaf, in place:
+    the values ``build_cache`` gives, so a slot's next tenant starts from a
+    fresh slot's state.  Leaves with a seq axis are left alone."""
+    for group in ("pre", "scan", "rem"):
+        for layer in cache[group] or ():
+            for name, leaf in layer.items():
+                if name in STATE_LEAVES:
+                    (leaf[:, slot] if group == "scan" else leaf[slot]).zero_()
+
+
 def grow_cache(cache: dict, extra: int) -> dict:
     """A copy of ``cache`` with the seq axis of every KV-ish leaf padded by
     ``extra`` empty rows (write-then-attend decode needs write_pos <
-    capacity).  Other leaves are carried over as they are."""
+    capacity).  Other leaves (the recurrent state) are copied unchanged, so
+    a decode on the copy, which writes its state in place, leaves
+    ``cache`` as it was."""
     def pad(name, leaf):
         if name in ("k", "v"):
             axis = leaf.ndim - 3
         elif name in ("ckv", "kr"):
             axis = leaf.ndim - 2
         else:
-            return leaf
+            return leaf.clone()
         widths = [0, 0] * (leaf.ndim - 1 - axis) + [0, extra]
         return F.pad(leaf, widths)
 

@@ -1,6 +1,6 @@
 """Pattern-stacked transformer: schema, init, forward (port of
-``repro/models/transformer.py``, its attention layers with the dense MLP
-or the routed experts).
+``repro/models/transformer.py``: attention, MLA and recurrent layers with
+the dense MLP, the routed experts or no feed-forward block).
 
 Params are a flat dict ``{"path/like/this": tensor}`` with the reference's
 names and layouts, so ``convert.params_from_reference`` is a dtype
@@ -17,11 +17,14 @@ scan leaves stacked over periods.  Decode writes the new token's k/v into
 the cache IN PLACE (write-then-attend) and returns the same cache object;
 the reference returns an updated copy.
 
-Served and trained here: ``mixer="attn"`` and ``mixer="mla"`` (DeepSeek's
-latent attention, ``models/mla.py``) with ``ffn="mlp"`` or the routed
-experts ``ffn="moe"`` (``models/moe.py``), full-context or windowed prefill, full-context decode with or without the factored
+Served and trained here: ``mixer="attn"``, ``mixer="mla"`` (DeepSeek's
+latent attention, ``models/mla.py``) and the recurrent mixers ``rglru``,
+``mlstm`` and ``slstm`` (``models/recurrent.py``) with ``ffn="mlp"``, the
+routed experts ``ffn="moe"`` (``models/moe.py``) or none, full-context or
+windowed prefill, full-context decode with or without the factored
 prefix, windowed decode and chunked prefill over a ring-buffer cache,
-absorbed latent decode and chunked prefill into a latent cache, and
+absorbed latent decode and chunked prefill into a latent cache, recurrent
+state carried through a cache (written back in place), and
 the single-card training loss (``cross_entropy``, ``loss_fn``;
 autograd runs through the forward, which never writes a tensor autograd
 saved: the only in-place writes are those of a cache, and training passes
@@ -43,11 +46,9 @@ from repro_torch.configs.base import LayerSpec, ModelCfg
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec
 
 _NOT_PORTED = {
-    "rglru": "recurrent mixers (ROADMAP Queue 1 item 16e)",
-    "mlstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
-    "slstm": "recurrent mixers (ROADMAP Queue 1 item 16e)",
     "cross_attn": "enc-dec cross-attention (ROADMAP Queue 1 item 16f)",
     "encdec": "the enc-dec encoder (ROADMAP Queue 1 item 16f)",
     "vlm": "the VLM frontend (ROADMAP Queue 1 item 16f)",
@@ -82,8 +83,6 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
                        cfg.d_ff)
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * cfg.n_layers)
-    if spec.mixer not in ("attn", "mla"):
-        raise not_ported(spec.mixer)
     if spec.cross_attn:
         raise not_ported("cross_attn")
     defs: dict[str, ParamDef] = {}
@@ -102,7 +101,34 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
         defs["mla/w_uk"] = ParamDef((m.kv_lora_rank, H, m.qk_nope_dim), s_in)
         defs["mla/w_uv"] = ParamDef((m.kv_lora_rank, H, m.v_head_dim), s_in)
         defs["mla/wo"] = ParamDef((H * m.v_head_dim, D), s_out)
-    else:
+    elif spec.mixer == "rglru":
+        Dr = cfg.rnn.d_rnn or D
+        W = cfg.rnn.conv_width
+        defs["rnn/w_in"] = ParamDef((D, Dr), s_in)
+        defs["rnn/w_gate_in"] = ParamDef((D, Dr), s_in)
+        defs["rnn/conv_w"] = ParamDef((W, Dr), 0.3)
+        defs["rnn/w_a"] = ParamDef((Dr, Dr), s_in)
+        defs["rnn/w_x"] = ParamDef((Dr, Dr), s_in)
+        defs["rnn/lam"] = ParamDef((Dr,), 0.5)
+        defs["rnn/w_out"] = ParamDef((Dr, D), s_out)
+    elif spec.mixer == "mlstm":
+        Di = int(cfg.rnn.mlstm_proj_factor * D)
+        W = cfg.rnn.conv_width
+        defs["mlstm/w_up"] = ParamDef((D, Di), s_in)
+        defs["mlstm/w_z"] = ParamDef((D, Di), s_in)
+        defs["mlstm/conv_w"] = ParamDef((W, Di), 0.3)
+        defs["mlstm/wq"] = ParamDef((Di, Di), s_in)
+        defs["mlstm/wk"] = ParamDef((Di, Di), s_in)
+        defs["mlstm/wv"] = ParamDef((Di, Di), s_in)
+        defs["mlstm/w_ig"] = ParamDef((Di, H), s_in)
+        defs["mlstm/w_fg"] = ParamDef((Di, H), s_in)
+        defs["mlstm/w_down"] = ParamDef((Di, D), s_out)
+    elif spec.mixer == "slstm":
+        hd_s = D // H
+        defs["slstm/w_x"] = ParamDef((D, 4 * D), s_in)
+        defs["slstm/r"] = ParamDef((H, hd_s, 4 * hd_s), s_in)
+        defs["slstm/w_out"] = ParamDef((D, D), s_out)
+    elif spec.mixer == "attn":
         defs["attn/wq"] = ParamDef((D, H, hd), s_in)
         defs["attn/wk"] = ParamDef((D, KV, hd), s_in)
         defs["attn/wv"] = ParamDef((D, KV, hd), s_in)
@@ -114,6 +140,8 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
         if cfg.qk_norm:
             defs["attn/q_norm"] = ParamDef((hd,), 0.0)
             defs["attn/k_norm"] = ParamDef((hd,), 0.0)
+    else:
+        raise ValueError(spec.mixer)
     if spec.ffn == "mlp":
         defs["mlp/w_gate"] = ParamDef((D, F), s_in)
         defs["mlp/w_up"] = ParamDef((D, F), s_in)
@@ -255,20 +283,23 @@ def _act_dtype(cfg):
 def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                 positions, rope, cache, write_pos, return_cache: bool,
                 causal: bool = True, factors=None, comp_len=None):
-    """Residual block: norm -> attention or MLA -> (+) [norm -> mlp/moe ->
-    (+)].  ``rope`` is the (cos, sin) of ``positions`` at the mixer's
-    rotary width (None without RoPE).  Returns (x, new_cache_dict_or_None)."""
-    if spec.mixer not in ("attn", "mla"):
-        raise not_ported(spec.mixer)
+    """Residual block: norm -> attention, MLA or a recurrent mixer -> (+)
+    [norm -> mlp/moe -> (+)].  ``rope`` is the (cos, sin) of ``positions``
+    at the mixer's rotary width (None without RoPE).  Returns (x,
+    new_cache_dict_or_None); a recurrent mixer given a cache writes its new
+    state into it and returns it."""
     if spec.cross_attn:
         raise not_ported("cross_attn")
     h = L.apply_norm(cfg, p, "norm1", x)
-    if spec.mixer == "mla":
+    if spec.mixer in _RECURRENT:
+        mix, new_cache = _RECURRENT[spec.mixer](
+            cfg, p, h, cache=cache, return_cache=return_cache)
+    elif spec.mixer == "mla":
         mix, new_cache = mla_mod.mla_block(
             cfg, p, h, positions=positions, rope=rope,
             cache=cache if cache and "ckv" in cache else None,
             write_pos=write_pos, return_cache=return_cache)
-    else:
+    elif spec.mixer == "attn":
         c = None
         if cache is not None and "k" in cache:
             c = L.KVCache(cache["k"], cache["v"])
@@ -277,6 +308,8 @@ def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                                    return_cache=return_cache, causal=causal,
                                    factors=factors, comp_len=comp_len)
         new_cache = {"k": kv.k, "v": kv.v} if kv is not None else None
+    else:
+        raise ValueError(spec.mixer)
     if cfg.post_norms:
         mix = L.apply_norm(cfg, p, "norm1_post", mix)
     if cfg.parallel_block and spec.ffn != "none":
@@ -288,6 +321,10 @@ def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
             ff = L.apply_norm(cfg, p, "norm2_post", ff)
         x = x + ff
     return x, new_cache
+
+
+_RECURRENT = {"rglru": rec.rglru_block, "mlstm": rec.mlstm_block,
+              "slstm": rec.slstm_block}
 
 
 def _ffn(cfg, spec, p, h):
@@ -327,7 +364,10 @@ def _attn_with_cache(cfg, spec, p, h, *, positions, rope, cache, write_pos,
                 kv = L.KVCache(k[:, -spec.window:], v[:, -spec.window:])
             else:
                 kv = L.KVCache(k, v)
-    elif spec.window is not None and cache.k.shape[1] <= spec.window:
+    elif (spec.window is not None and cache.k.shape[1] <= spec.window
+          and not factors):
+        # a window holding the whole cache with factors (max_seq <= window:
+        # the layer is full-context and swaps) decodes through them below
         out = _ring_attend(cfg, q, k, v, cache, positions, int(write_pos),
                            scale=scale, causal=causal)
         kv = cache

@@ -7,6 +7,9 @@ slot for the next queue entry.  ``Engine`` inherits every tensor primitive
 from ``ModelStep`` and adds the queue, slot assignment and the decode loop.
 Decode rows land at the uniform slot clock max(pos), so a slot admitted
 mid-stream goes non-contiguous and never compresses (DESIGN.md §12.1).
+The unmasked decode step advances every slot's recurrent state, idle ones
+included, so admission zeroes the slot's state before its prefill (the
+reference does not: a documented deviation).
 
 ``submit`` enforces a bounded queue: past ``max_queue`` waiting requests it
 raises ``QueueFullError``.
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.models import cache as cache_mod
 from repro_torch.serve.model_step import ModelStep
 from repro_torch.serve.scheduler import QueueFullError
 
@@ -64,6 +68,9 @@ class Engine(ModelStep):
             if self.active[s] is None and self.queue:
                 req = self.queue.pop(0)
                 self.active[s] = req
+                # the last tenant's and the idle decode steps' recurrent
+                # state must not reach this request (the reference keeps it)
+                cache_mod.reset_slot_state(self.cache, s)
                 logits = self._prefill_slot(s, req.prompt, 0)
                 self.pos[s] = len(req.prompt)
                 req.out.append(int(torch.argmax(logits)))

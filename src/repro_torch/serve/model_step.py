@@ -24,7 +24,12 @@ Differences from the reference, none of which changes the arithmetic:
   * the weights are cast to the activation dtype once, at construction;
   * a masked step (the scheduler's decode, ``_prefill_pool``) restores the
     other slots' rows at the clock in every leaf with a seq axis, k/v and
-    MLA latents, where the reference merges every leaf under the mask.
+    MLA latents, and their whole recurrent-state leaves, where the
+    reference merges every leaf under the mask.
+``begin_slot`` also zeroes the slot's recurrent state (``h``, ``conv``,
+``c``, ``n``), as the Engine's admission does: the reference resets
+neither, so its reused or idle-stepped slots start a request from the
+last tenant's state (a documented deviation).
 Windowed (ring) cache leaves keep rolling sketches whose ring mirrors the
 cache ring (``kv_compress.kv_rolling_*``); only full-context k/v leaves swap
 to factors.
@@ -222,7 +227,8 @@ class ModelStep:
 
     def begin_slot(self, slot: int) -> None:
         """Complete per-slot reset for a new tenant: next write position
-        back to 0, the slot's windowed ring rows zeroed, and — with
+        back to 0, the slot's windowed ring rows and recurrent state
+        zeroed, and — with
         sketching on — fresh sketch states (linear and rolling), cleared
         pending span, the contiguity watchdog rearmed and any factored
         prefix dropped.
@@ -235,6 +241,7 @@ class ModelStep:
         self.pos[slot] = 0
         for path in self._ring_paths:
             self._slot_leaf(path, slot).zero_()
+        cache_mod.reset_slot_state(self.cache, slot)
         if self.kv_sketch_rank:
             self._reset_slot_sketches(slot)
             self._kv_pending[slot] = None
@@ -531,22 +538,39 @@ class ModelStep:
         self.last_logits = logits
         return logits
 
+    def _state_leaves(self):
+        """(group, leaf) of every recurrent-state leaf (h, conv, c, n)."""
+        for group in ("pre", "scan", "rem"):
+            for layer in self.cache[group] or ():
+                for name, leaf in layer.items():
+                    if name in cache_mod.STATE_LEAVES:
+                        yield group, leaf
+
     def _masked_step(self, batch: dict, slot_mask) -> torch.Tensor:
         """One serve step over the pool at ``batch["write_pos"]`` whose cache
         writes survive only for the slots in the (slots,) bool mask: the
         other slots' rows at that clock are restored in every leaf with a
-        seq axis (the reference masks every leaf)."""
+        seq axis, and their rows of every recurrent-state leaf whole (the
+        reference masks every leaf)."""
         wp = batch["write_pos"]
-        off = torch.as_tensor(~np.asarray(slot_mask, bool), device=self.device)
+        off_np = ~np.asarray(slot_mask, bool)
+        off = torch.as_tensor(off_np, device=self.device)
         keep = [(group, name, leaf,
                  self._clock_rows(group, name, leaf, wp).clone())
                 for group, name, leaf in self._seq_leaves()]
+        idle = torch.as_tensor(np.flatnonzero(off_np), device=self.device)
+        states = ([(leaf, int(group == "scan"),
+                    leaf.index_select(int(group == "scan"), idle))
+                   for group, leaf in self._state_leaves()]
+                  if idle.numel() else [])
         logits, _ = self._serve(self.params, batch)
         for group, name, leaf, old in keep:
             rows = self._clock_rows(group, name, leaf, wp)
             lead = (1, -1) if group == "scan" else (-1,)
             rows.copy_(torch.where(
                 off.reshape(lead + (1,) * (rows.ndim - len(lead))), old, rows))
+        for leaf, axis, old in states:
+            leaf.index_copy_(axis, idle, old)
         return logits
 
     @staticmethod

@@ -138,6 +138,15 @@ class Scheduler:
         self.stream_bound = self._stream_bound()
         if hbm_budget is None:
             self.max_streams = model.slots
+        elif self.stream_bound == 0:
+            # no full-context attention k/v (recurrent and windowed layers
+            # only, or windows shorter than max_seq): the reference divides
+            # by zero here
+            raise ValueError(
+                f"hbm_budget={hbm_budget} caps nothing: {model.cfg.name} at "
+                f"max_seq={model.max_seq} holds no swappable KV bytes a "
+                f"stream (no full-context attention layer); run without "
+                f"an hbm_budget")
         else:
             self.max_streams = min(model.slots,
                                    max(0, hbm_budget // self.stream_bound))

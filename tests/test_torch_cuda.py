@@ -1036,3 +1036,63 @@ def test_deepseek_prefill_and_decode_on_card_match_cpu(gen):
     assert k3.launches == before
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mixer", ["rglru", "mlstm", "slstm"])
+def test_recurrent_block_on_card_matches_cpu(gen, mixer, act):
+    """Each recurrent mixer on the card against the CPU: a 40-token chunk
+    from a random cached state (mLSTM in chunks of 16), then one token,
+    outputs and the states written into the cache at rtol 1e-5 / atol 1e-5
+    in f32 and 2e-2 / 2e-2 in bf16."""
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import transformer as T
+    arch = "recurrentgemma-2b" if mixer == "rglru" else "xlstm-350m"
+    cfg = smoke_config(R.get_arch(arch)).with_(activation_dtype=act)
+    spec = next(sp for sp in cfg.pattern if sp.mixer == mixer)
+    g = torch.Generator().manual_seed(4)
+    prefix = "rnn/" if mixer == "rglru" else f"{mixer}/"
+    p = {k: d.scale * torch.randn(d.shape, generator=g)
+         for k, d in T._layer_defs(cfg, spec).items() if k.startswith(prefix)}
+    dt = getattr(torch, act)
+    x = torch.randn((2, 41, cfg.d_model), generator=g).to(dt)
+    _, state0 = getattr(rec, f"{mixer}_block")(cfg, p, x[:, :8], cache=None,
+                                               return_cache=True)
+    block = getattr(rec, f"{mixer}_block")
+    kw = {"chunk": 16} if mixer == "mlstm" else {}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        cache = {k: v.to(dev).clone() for k, v in state0.items()}
+        o1, _ = block(cfg, pd, x[:, 8:40].to(dev), cache=cache, return_cache=False, **kw)
+        o2, _ = block(cfg, pd, x[:, 40:].to(dev), cache=cache, return_cache=False)
+        out[dev] = (o1.cpu(), o2.cpu(), {k: v.cpu() for k, v in cache.items()})
+    tol = dict(rtol=1e-5, atol=1e-5) if act == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got, want, **tol)
+    for k, v in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][k], v, **tol)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_recurrent_masked_step_on_card_keeps_other_slots(gen, arch):
+    """ModelStep on the card (bf16): chunked prefill into three slots, a
+    masked decode step for slot 0 leaves slots 1 and 2's state bit for
+    bit, and begin_slot zeroes a slot's state."""
+    from repro_torch.serve.model_step import ModelStep
+    cfg = smoke_config(R.get_arch(arch))
+    params = launch.init_weights(cfg, seed=0, device="cuda")
+    m = ModelStep(cfg, params, slots=3, max_seq=32, device="cuda")
+    for slot, n in ((0, 6), (1, 9), (2, 4)):
+        m.prefill_rows(slot, list(range(1, n + 1)), 0)
+
+    def rows(slot):
+        return [(leaf[:, slot] if g == "scan" else leaf[slot]).clone()
+                for g, leaf in m._state_leaves()]
+    before = [rows(s) for s in range(3)]
+    m.decode_logits([[5], [6], [7]], 9, slot_mask=[True, False, False])
+    for s in (1, 2):
+        assert all(torch.equal(a, b) for a, b in zip(rows(s), before[s]))
+    assert not all(torch.equal(a, b) for a, b in zip(rows(0), before[0]))
+    m.begin_slot(1)
+    assert all(not r.any() for r in rows(1))

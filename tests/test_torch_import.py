@@ -100,10 +100,11 @@ def test_scheduler_slice_modules_import_without_jax(module):
 
 
 def test_moe_module_imports_without_jax():
-    """The routed experts' module, MLA's and the transformer that reaches
-    them, each imported alone in a fresh interpreter, load no jax and
-    nothing of the reference."""
+    """The routed experts' module, MLA's, the recurrent mixers' and the
+    transformer that reaches them, each imported alone in a fresh
+    interpreter, load no jax and nothing of the reference."""
     for module in ("repro_torch.models.moe", "repro_torch.models.mla",
+                   "repro_torch.models.recurrent",
                    "repro_torch.models.transformer"):
         code = (f"import sys\n"
                 f"import {module}\n"

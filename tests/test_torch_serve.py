@@ -20,8 +20,17 @@ over the pool at 8 slots (dropless) and at 16 (the pool's capacity drops
 pairs), and its f32 engine lockstep, compressed.  deepseek-v2-lite (MLA
 latents and routed experts) holds the same chunked prefill at 8 and 16
 slots, the masked decode's restore of the other slots' latent rows, its
-latent sketches and the refusal of a compression ratio."""
+latent sketches and the refusal of a compression ratio.  The recurrent
+archs (recurrentgemma-2b, xlstm-350m) hold the chunked slot prefill to the
+reference's token-by-token prefill and the masked decode's restore of the
+other slots' state bit for bit; a reused slot (``begin_slot``, the
+Engine's admission after idle decode steps) gives a fresh slot's logits,
+where the reference's slots leak the last tenant's state (asserted for
+itself: parity is asserted on fresh slots); their engines, refusals and
+the serve CLI; and windowed layers that hold all of max_seq compress as
+the reference's do."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -462,3 +471,317 @@ def test_lockstep_and_run_engine_on_cpu():
     assert run["tokens"] == 18 and run["steps"] > 0 and run["seconds"] > 0
     assert seen == list(range(run["steps"])) == list(range(len(run["step_ms"])))
     assert not run["engine"].queue and not any(run["engine"].active)
+
+
+# -- the recurrent archs: recurrentgemma-2b (RG-LRU + local attention) and
+# xlstm-350m (mLSTM + sLSTM) -------------------------------------------------
+
+RECURRENT = ["recurrentgemma-2b", "xlstm-350m"]
+
+
+def _f32_conv(cache):
+    """f32 ``conv`` leaves for the f32 parity runs, in either package's
+    cache.  The blocks return an f32 conv state in f32 activations: the
+    port writes it into its leaf in place, which a bf16 leaf would round,
+    and the reference's model step scans its slot prefill with the cache as
+    the carry, which refuses a bf16 leaf coming back f32."""
+    for group in ("pre", "scan", "rem"):
+        for layer in cache[group] or ():
+            if "conv" in layer:
+                conv = layer["conv"]
+                layer["conv"] = (conv.float() if isinstance(conv, torch.Tensor)
+                                 else conv.astype(np.float32))
+    return cache
+
+
+def _state_rows(model, slot):
+    """Clones of ``slot``'s rows of every recurrent-state leaf."""
+    out = {}
+    for group in ("pre", "scan", "rem"):
+        for i, layer in enumerate(model.cache[group] or ()):
+            for name in ("h", "conv", "c", "n"):
+                if name in layer:
+                    leaf = layer[name]
+                    out[(group, i, name)] = (leaf[:, slot] if group == "scan"
+                                             else leaf[slot]).clone()
+    return out
+
+
+@pytest.fixture(scope="module")
+def recurrent_ref_prefill():
+    """For each arch, once: the reference's slot prefill token by token
+    (f32), 12 tokens into slot 0, then 40 into fresh slot 2 of 3: the
+    logits after each token and the model step."""
+    runs = {}
+
+    def get(arch):
+        if arch not in runs:
+            ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+            tok = np.random.default_rng(7).integers(1, cfg.vocab, 52).tolist()
+            ref = RefModelStep(ref_cfg, ref_params, slots=3, max_seq=48)
+            _f32_conv(ref.cache)
+            ref.prefill_rows(0, tok[40:], 0)
+            want = [np.asarray(ref.prefill_rows(2, [t], i))
+                    for i, t in enumerate(tok[:40])]
+            runs[arch] = (cfg, params, tok, want, ref)
+        return runs[arch]
+    return get
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 40])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_rows_chunks_match_reference_token_by_token(
+        recurrent_ref_prefill, arch, chunk):
+    """The port's chunked slot prefill (one serve step a chunk on the
+    slot's rows; recurrentgemma's 16-row ring wraps) against the
+    reference's token-by-token ``_make_slot_prefill`` on fresh slots, f32
+    with f32 conv leaves: logits at each chunk's end within 1e-4, state
+    leaves within 1e-4, k/v within 1e-2 (a bf16 cache)."""
+    cfg, params, tok, want, ref = recurrent_ref_prefill(arch)
+    port = ModelStep(cfg, params, slots=3, max_seq=48, device="cpu")
+    _f32_conv(port.cache)
+    port.prefill_rows(0, tok[40:], 0)
+    for start in range(0, 40, chunk):
+        end = min(start + chunk, 40)
+        got = port.prefill_rows(2, tok[start:end], start).numpy()
+        np.testing.assert_allclose(got, want[end - 1], rtol=1e-4, atol=1e-4)
+    for group in ("pre", "scan", "rem"):
+        for layer, ref_layer in zip(port.cache[group] or (), ref.cache[group] or ()):
+            assert sorted(layer) == sorted(ref_layer)
+            for name in layer:
+                tol = 1e-2 if name in ("k", "v") else 1e-4
+                np.testing.assert_allclose(layer[name].float().numpy(),
+                                           np.asarray(ref_layer[name], np.float32),
+                                           rtol=tol, atol=tol, err_msg=name)
+    assert list(port.pos) == list(ref.pos)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_masked_decode_keeps_other_slots_state(arch):
+    """A masked decode step for slot 0 alone: slot 0's logits and state
+    match the reference's (f32, 1e-4), and slots 1 and 2 keep every
+    recurrent-state row bit for bit (the unmasked step changes them)."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    ref = RefModelStep(ref_cfg, ref_params, slots=3, max_seq=32)
+    port = ModelStep(cfg, params, slots=3, max_seq=32, device="cpu")
+    _f32_conv(ref.cache)
+    _f32_conv(port.cache)
+    tok = np.random.default_rng(8).integers(1, cfg.vocab, 30).tolist()
+    for slot, start, end in ((0, 0, 6), (1, 0, 9), (2, 0, 4)):
+        want = np.asarray(ref.prefill_rows(slot, tok[start:end], start))
+        got = port.prefill_rows(slot, tok[start:end], start).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    before = {s: _state_rows(port, s) for s in range(3)}
+    tokens, mask = np.array([[tok[20]], [tok[21]], [tok[22]]], np.int32), \
+        np.array([True, False, False])
+    want = np.asarray(ref.decode_logits(tokens, 6, slot_mask=mask))
+    got = port.decode_logits(tokens, 6, slot_mask=mask).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for s in (1, 2):
+        after = _state_rows(port, s)
+        assert all(torch.equal(after[k], v) for k, v in before[s].items()), s
+    assert any(not torch.equal(_state_rows(port, 0)[k], v)
+               for k, v in before[0].items())
+    for (group, i, name), rows in _state_rows(port, 0).items():
+        ref_leaf = np.asarray(ref.cache[group][i][name], np.float32)
+        ref_rows = ref_leaf[:, 0] if group == "scan" else ref_leaf[0]
+        np.testing.assert_allclose(rows.float().numpy(), ref_rows, rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    port.decode_logits(tokens, 6)                 # unmasked: every slot moves
+    assert any(not torch.equal(_state_rows(port, 1)[k], v)
+               for k, v in before[1].items())
+
+
+def _tenant_run(model, slot, tokens):
+    """Prefill ``tokens[:2]`` into ``slot``, then masked decode steps of the
+    rest at the slot's own positions: the logits after each (a short
+    prefill, so that a state left by the last tenant still shows)."""
+    out = [np.asarray(model.prefill_rows(slot, tokens[:2], 0))]
+    mask = np.arange(model.slots) == slot
+    for i, t in enumerate(tokens[2:]):
+        toks = np.zeros((model.slots, 1), np.int32)
+        toks[slot, 0] = t
+        out.append(np.asarray(model.decode_logits(toks, 2 + i, slot_mask=mask))[slot])
+        model.pos[slot] = 3 + i
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_begin_slot_reuse_equals_fresh_slot(arch, monkeypatch):
+    """Slot 1 serves tenant A, then begin_slot(1) and tenant B: B's logits
+    equal B's in a fresh pool (1e-6, f32).  The reference's begin_slot
+    keeps A's recurrent state, and so does the port's with the reset
+    patched out: B's logits then move by more than 1e-4 (at the smoke
+    init's scale the recurrences forget within a few tokens, so B's prefill
+    is two tokens long)."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(1, cfg.vocab, 5).tolist() for _ in range(2))
+
+    def reused(model):
+        model.begin_slot(1)
+        _tenant_run(model, 1, a)
+        model.begin_slot(1)
+        return _tenant_run(model, 1, b)
+
+    def fresh(model):
+        model.begin_slot(1)
+        return _tenant_run(model, 1, b)
+
+    mk = dict(slots=2, max_seq=32)
+
+    def make(cls, *args, **kw):
+        model = cls(*args, **kw, **mk)
+        _f32_conv(model.cache)
+        return model
+
+    got = reused(make(ModelStep, cfg, params, device="cpu"))
+    want = fresh(make(ModelStep, cfg, params, device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    ref_fresh = fresh(make(RefModelStep, ref_cfg, ref_params))
+    np.testing.assert_allclose(want, ref_fresh, rtol=1e-4, atol=1e-4)
+    ref_reused = reused(make(RefModelStep, ref_cfg, ref_params))
+    assert np.abs(ref_reused - ref_fresh).max() > 1e-4
+    from repro_torch.models import cache as cache_mod
+    monkeypatch.setattr(cache_mod, "reset_slot_state", lambda cache, slot: None)
+    leaky = reused(make(ModelStep, cfg, params, device="cpu"))
+    assert np.abs(leaky - want).max() > 1e-4
+
+
+@pytest.mark.parametrize("reset", [True, False], ids=["reset", "reset patched out"])
+def test_engine_admission_resets_reused_idle_slot(reset, monkeypatch):
+    """xlstm-350m's Engine, 2 slots: A decodes long in slot 0, B finishes
+    in slot 1, which then idles through 4 unmasked decode steps (token 0
+    advancing its state) before C is admitted there.  C's tokens and every
+    decode logit equal C's alone in a fresh engine (1e-5, f32); with the
+    admission's reset patched out they do not."""
+    from repro_torch.models import cache as cache_mod
+    _, cfg, _, params = _pair("float32", "xlstm-350m")
+    rng = np.random.default_rng(10)
+    pa, pb, pc = (rng.integers(1, cfg.vocab, 5).tolist() for _ in range(3))
+    if not reset:
+        monkeypatch.setattr(cache_mod, "reset_slot_state", lambda cache, slot: None)
+
+    def run(reqs, late=None):
+        eng = Engine(cfg, params, slots=2, max_seq=64, device="cpu")
+        _f32_conv(eng.cache)
+        for r in reqs:
+            eng.submit(r)
+        logits, step, slot = [], 0, None
+        while eng.queue or any(eng.active):
+            if late is not None and step == late[0]:
+                eng.submit(late[1])
+            before = len(late_req.out)
+            eng.step()
+            step += 1
+            if slot is None:
+                slot = next((s for s in range(2) if eng.active[s] is late_req), None)
+            if slot is not None and len(late_req.out) > before:
+                logits.append(eng.last_logits[slot].numpy())
+        return logits
+
+    late_req = Request(rid=2, prompt=pc, max_new=6)
+    got = run([Request(rid=0, prompt=pa, max_new=16),
+               Request(rid=1, prompt=pb, max_new=3)], late=(6, late_req))
+    got_out = list(late_req.out)
+    late_req = Request(rid=2, prompt=pc, max_new=6)
+    want = run([late_req])
+    assert len(got) == len(want) == 5 and len(got_out) == 6
+    same = (got_out == late_req.out
+            and np.allclose(np.stack(got), np.stack(want), rtol=1e-5, atol=1e-5))
+    assert same == reset
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_engine_recurrent_cache_families(arch):
+    """The counterpart of the reference's test_engine_other_cache_families:
+    one request through the port's engine; its greedy tokens equal the
+    reference's full forward's."""
+    ref_cfg, cfg, ref_params, params = _pair("bfloat16", arch)
+    eng = Engine(cfg, params, slots=2, max_seq=48, device="cpu")
+    prompt = [3, 5, 7]
+    req = Request(rid=0, prompt=list(prompt), max_new=3)
+    eng.submit(req)
+    eng.run()
+    assert req.done and len(req.out) >= 3
+    ref = []
+    for _ in range(3):
+        out = RT.forward(ref_cfg, ref_params, jax.numpy.asarray([prompt + ref], np.int32))
+        ref.append(int(np.argmax(np.asarray(out.logits[0, -1], np.float32))))
+    assert req.out[:3] == ref, (arch, req.out, ref)
+
+
+@pytest.mark.parametrize("arch,max_seq,refused", [
+    ("xlstm-350m", 16, True), ("recurrentgemma-2b", 48, True),
+    ("recurrentgemma-2b", 16, False)])
+def test_recurrent_compression_ratio(arch, max_seq, refused):
+    """A compression ratio needs full-context k/v: xlstm has none, and
+    recurrentgemma's local layers are full-context only while max_seq fits
+    their window (16 in smoke); both packages agree."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    kw = dict(slots=2, max_seq=max_seq, kv_sketch_rank=4, kv_compress_ratio=2.0)
+    for make in (lambda: RefModelStep(ref_cfg, ref_params, **kw),
+                 lambda: ModelStep(cfg, params, device="cpu", **kw)):
+        if refused:
+            with pytest.raises(ValueError, match="no full-context attention k/v leaves"):
+                make()
+        else:
+            assert make().kv_fact is not None
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_hbm_budget_without_swappable_bytes_raises(arch):
+    """No full-context k/v at max_seq 48: an HBM budget caps nothing; the
+    port says so, where the reference divides by zero."""
+    from repro.serve.scheduler import Scheduler as RefScheduler
+    from repro_torch.serve.scheduler import Scheduler
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    with pytest.raises(ValueError, match="no swappable KV bytes"):
+        Scheduler(ModelStep(cfg, params, slots=2, max_seq=48, device="cpu"),
+                  hbm_budget=1 << 30)
+    with pytest.raises(ZeroDivisionError):
+        RefScheduler(RefModelStep(ref_cfg, ref_params, slots=2, max_seq=48),
+                     hbm_budget=1 << 30)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("mode", ["engine", "scheduler"])
+def test_serve_cli_recurrent_smoke(arch, mode, capsys):
+    """``launch.serve --smoke`` on the CPU for both recurrent archs: the
+    closed-loop engine and the open-loop scheduler drain; a compression
+    ratio raises."""
+    base = ["--device", "cpu", "--smoke", "--arch", arch, "--slots", "2",
+            "--max-seq", "128", "--prompt-len", "24", "--max-new", "8",
+            "--requests", "3", "--kv-rank", "4"]
+    if mode == "scheduler":
+        base += ["--arrival-rate", "200", "--prefill-chunk", "16"]
+    launch.main(base)
+    out = capsys.readouterr().out
+    if mode == "engine":
+        assert "served 3 requests / 24 tokens" in out
+    else:
+        assert "SLO summary (virtual clock)" in out and "3 requests" in out
+    with pytest.raises(ValueError, match="no full-context attention"):
+        launch.main(base + ["--kv-compress-ratio", "2"])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "gemma2-2b"])
+def test_windowed_layers_within_max_seq_compress_like_reference(arch):
+    """Local layers whose window holds all of max_seq are full-context: the
+    reference swaps their k/v to factors and decodes through them.  With a
+    64-row window and max_seq 64 the f32 engines compress at rank ==
+    head_dim (exact swaps) and stay in lockstep within 1e-1, with equal
+    comp_len after every step (both packages' conv leaves f32)."""
+    ref_cfg, cfg, ref_params, params = _pair("float32", arch)
+    widen = lambda c: c.with_(pattern=tuple(  # noqa: E731
+        dataclasses.replace(sp, window=64) if sp.window else sp for sp in c.pattern))
+    ref_cfg, cfg = widen(ref_cfg), widen(cfg)
+    kw = dict(slots=2, max_seq=64, kv_sketch_rank=cfg.head_dim, kv_compress_ratio=1.0)
+    ref = RefEngine(ref_cfg, ref_params, **kw)
+    port = Engine(cfg, params, device="cpu", **kw)
+    _f32_conv(ref.cache)
+    _f32_conv(port.cache)
+    assert port._kv_swap_paths and not port._kv_roll_paths
+    diffs, _ = _lockstep(ref, port, max_new=40, steps=56)
+    assert max(diffs) < 1e-1, max(diffs)
+    assert (port._kv_comp_len > 0).all()

@@ -17,6 +17,13 @@ prefill) and the masked decode at a clock past the window, each within
 The routed-MoE arch (smoke qwen3-moe, f32): forward and ``loss_fn`` at the
 dense bounds, gradients at rtol 1e-4 / atol 1e-6 max|g|, and prefill then
 decode against a full forward and against the reference's steps.
+The recurrent archs (smoke recurrentgemma-2b and xlstm-350m): the schema,
+forward and ``loss_fn`` (f32 at the dense bounds, bf16 at ``TOL`` and the
+loss at 1e-2), gradients as for the MoE, prefill then decode against the
+reference's steps and a full forward, recurrentgemma's decode on the
+cache of a two-window prefill, and chunked serve steps (1, 5, 16 rows)
+against the reference's token by token at 1e-4 (k/v within a bf16 ulp),
+in f32 with f32 conv leaves.
 """
 
 import numpy as np
@@ -156,7 +163,8 @@ def test_serve_step_matches_reference(qwen):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "recurrentgemma-2b",
-                                  "deepseek-v2-lite-16b", "whisper-large-v3"])
+                                  "xlstm-350m", "deepseek-v2-lite-16b",
+                                  "whisper-large-v3"])
 def test_cache_trees_and_bytes_match_reference(arch):
     ref_cfg, cfg = ref_smoke(RR.get_arch(arch)), smoke_config(R.get_arch(arch))
     ref = rcache.build_cache(ref_cfg, 2, 24)
@@ -190,7 +198,6 @@ def test_grow_cache_pads_kv_rows_only():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("recurrentgemma-2b", "recurrent"), ("xlstm-350m", "recurrent"),
     ("whisper-large-v3", "enc-dec"), ("llava-next-34b", "VLM")])
 def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
     cfg = smoke_config(R.get_arch(arch))
@@ -461,3 +468,196 @@ def test_moe_prefill_then_decode_matches_full_forward(moe_f32):
         "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
         "write_pos": jnp.asarray(s, jnp.int32)})
     np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
+
+
+# -- the recurrent archs (recurrentgemma-2b: RG-LRU, RG-LRU, local attention;
+# xlstm-350m: 7 mLSTM + 1 sLSTM) --------------------------------------------
+
+RECURRENT_ARCHS = ["recurrentgemma-2b", "xlstm-350m"]
+
+
+def _pair(arch, act):
+    ref_cfg = ref_smoke(RR.get_arch(arch)).with_(activation_dtype=act)
+    cfg = smoke_config(R.get_arch(arch)).with_(activation_dtype=act)
+    ref_params = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_reference({k: np.asarray(v) for k, v in ref_params.items()},
+                                   cfg)
+    return ref_cfg, cfg, ref_params, params
+
+
+def _f32_conv(cache):
+    """The cache with f32 ``conv`` leaves: in f32 activations the
+    reference's conv leaf turns f32 at its first step, so the port's f32
+    parity tests give theirs f32 too (a bf16 leaf would round the state)."""
+    for group in ("pre", "scan", "rem"):
+        for layer in cache[group] or ():
+            if "conv" in layer:
+                layer["conv"] = layer["conv"].float()
+    return cache
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_schema_matches_reference(arch):
+    ref_cfg, cfg = ref_smoke(RR.get_arch(arch)), smoke_config(R.get_arch(arch))
+    ref, port = RT.schema(ref_cfg), T.schema(cfg)
+    assert set(ref) == set(port)
+    for name, d in port.items():
+        assert d.shape == ref[name].shape and d.scale == ref[name].scale, name
+    assert T.param_count(R.get_arch(arch)) == RT.param_count(RR.get_arch(arch))
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_forward_and_loss_match_reference(arch, act):
+    """Forward logits and ``loss_fn``: f32 at the dense bounds (logits
+    1.6e-5 + 1e-6 relative, the loss 3e-7 relative), bf16 at ``TOL``."""
+    ref_cfg, cfg, ref_params, params = _pair(arch, act)
+    tok = _tokens((2, 24), cfg.vocab, seed=21)
+    want = RT.forward(ref_cfg, RT.cast_params_for_compute(ref_cfg, ref_params),
+                      jnp.asarray(tok)).logits
+    got = T.forward(cfg, T.cast_params_for_compute(cfg, params),
+                    torch.as_tensor(tok).long()).logits
+    assert got.dtype == getattr(torch, act)
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               **(F32_LOGITS if act == "float32" else TOL))
+    labels = _tokens((2, 24), cfg.vocab, seed=22)
+    labels[0, :3] = -1
+    want = float(RT.loss_fn(ref_cfg, RT.cast_params_for_compute(ref_cfg, ref_params),
+                            {"tokens": jnp.asarray(tok), "labels": jnp.asarray(labels)}))
+    got = float(T.loss_fn(cfg, T.cast_params_for_compute(cfg, params),
+                          {"tokens": torch.as_tensor(tok).long(),
+                           "labels": torch.as_tensor(labels).long()}))
+    assert got == pytest.approx(want, rel=3e-7 if act == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_grads_match_reference_f32(arch):
+    """Gradients of ``loss_fn`` through the cast and every mixer (the
+    RG-LRU scan, mLSTM's chunks, sLSTM's time loop) at rtol 1e-4 with atol
+    1e-6 * max|g| of each leaf."""
+    ref_cfg, cfg, ref_params, params = _f32_pair(arch)
+    batch = {"tokens": _tokens((2, 20), cfg.vocab, seed=23),
+             "labels": _tokens((2, 20), cfg.vocab, seed=24)}
+
+    def ref_loss(p):
+        return RT.loss_fn(ref_cfg, RT.cast_params_for_compute(ref_cfg, p),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+    want, want_g = jax.value_and_grad(ref_loss)(ref_params)
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = T.loss_fn(cfg, T.cast_params_for_compute(cfg, leaves),
+                     {k: torch.as_tensor(v).long() for k, v in batch.items()})
+    names = sorted(leaves)
+    got_g = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names],
+                                                allow_unused=True,
+                                                materialize_grads=True)))
+    assert float(loss.detach()) == pytest.approx(float(want), rel=1e-5)
+    for k, g in got_g.items():
+        w = np.asarray(want_g[k])
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * max(np.abs(w).max(), 1e-30), err_msg=k)
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_prefill_then_decode_matches_reference(arch, act):
+    """make_prefill_step over 16 tokens (smoke recurrentgemma's window),
+    grow_cache by one row and one serve step, against the reference's same
+    three steps (f32: the dense bounds; bf16: ``TOL``) and against a full
+    forward over 17 (0.15, correlation > 0.99)."""
+    ref_cfg, cfg, ref_params, params = _pair(arch, act)
+    b, s = 2, 16
+    tol = F32_LOGITS if act == "float32" else TOL
+    tok = _tokens((b, s + 1), cfg.vocab, seed=25)
+    want, ref_cache = RR.make_prefill_step(ref_cfg)(ref_params,
+                                                    {"tokens": jnp.asarray(tok[:, :s])})
+    got, cache = R.make_prefill_step(cfg)(params,
+                                          {"tokens": torch.as_tensor(tok[:, :s]).long()})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **tol)
+    for layer, ref_layer in zip(cache["scan"], ref_cache["scan"]):
+        assert sorted(layer) == sorted(ref_layer)
+        for name in layer:
+            assert layer[name].dtype == getattr(torch, str(ref_layer[name].dtype))
+            np.testing.assert_allclose(_f32(layer[name]), _f32(ref_layer[name]),
+                                       **(tol if name not in ("k", "v") else TOL))
+    grown = C.grow_cache(cache, 1)
+    want, _ = RR.make_serve_step(ref_cfg)(ref_params, {
+        "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
+        "write_pos": jnp.asarray(s, jnp.int32)})
+    got, _ = R.make_serve_step(cfg)(params, {
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": grown, "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **tol)
+    full = R._final_logits(cfg, T.forward(cfg, T.cast_params_for_compute(cfg, params),
+                                          torch.as_tensor(tok).long()).logits[:, -1])
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0.15, atol=0.15)
+    assert np.corrcoef(got.numpy().ravel(), full.numpy().ravel())[0, 1] > 0.99
+
+
+def test_recurrentgemma_decode_after_two_windows_matches_reference():
+    """A 32-token prefill (two smoke windows of 16): the local layers'
+    caches hold the last window, which is the ring of write_pos 32 (32 %
+    16 == 0), so the decode runs on the prefill's cache as it is, without
+    grow_cache; f32, the reference's same two steps at the dense bounds."""
+    ref_cfg, cfg, ref_params, params = _f32_pair("recurrentgemma-2b")
+    b, s = 2, 32
+    tok = _tokens((b, s + 1), cfg.vocab, seed=26)
+    _, ref_cache = RR.make_prefill_step(ref_cfg)(ref_params,
+                                                 {"tokens": jnp.asarray(tok[:, :s])})
+    _, cache = R.make_prefill_step(cfg)(params,
+                                        {"tokens": torch.as_tensor(tok[:, :s]).long()})
+    assert cache["scan"][2]["k"].shape[2] == 16
+    want, _ = RR.make_serve_step(ref_cfg)(ref_params, {
+        "tokens": jnp.asarray(tok[:, s:]), "cache": ref_cache,
+        "write_pos": jnp.asarray(s, jnp.int32)})
+    got, _ = R.make_serve_step(cfg)(params, {
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": cache, "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
+    full = R._final_logits(cfg, T.forward(cfg, params,
+                                          torch.as_tensor(tok).long()).logits[:, -1])
+    np.testing.assert_allclose(got.numpy(), full.numpy(), **F32_LOGITS)
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_chunked_serve_matches_reference_token_by_token(arch, chunk):
+    """Chunks through one serve step each on a built cache (recurrentgemma:
+    across its 16-row ring's end) against the reference's serve step token
+    by token over 40 tokens, in f32 with f32 conv leaves: the last logits
+    of every chunk within 1e-4 and the final state leaves at 1e-4 (k/v
+    within a bf16 ulp)."""
+    ref_cfg, cfg, ref_params, params = _f32_pair(arch)
+    n, seq = 40, 48
+    tok = _tokens((2, n), cfg.vocab, seed=27)
+    step = jax.jit(RR.make_serve_step(ref_cfg))
+    ref_cache, want = rcache.build_cache(ref_cfg, 2, seq), []
+    for i in range(n):
+        out, ref_cache = step(ref_params, {"tokens": jnp.asarray(tok[:, i:i + 1]),
+                                           "cache": ref_cache,
+                                           "write_pos": jnp.asarray(i, jnp.int32)})
+        want.append(np.asarray(out))
+    cache = _f32_conv(C.build_cache(cfg, 2, seq, device="cpu"))
+    serve = R.make_serve_step(cfg)
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        got, _ = serve(params, {"tokens": torch.as_tensor(tok[:, start:end]).long(),
+                                "cache": cache, "write_pos": start})
+        np.testing.assert_allclose(got.numpy(), want[end - 1], rtol=1e-4, atol=1e-4)
+    for layer, ref_layer in zip(cache["scan"], ref_cache["scan"]):
+        for name in layer:
+            np.testing.assert_allclose(
+                _f32(layer[name]), _f32(ref_layer[name]),
+                **(dict(rtol=1e-2, atol=1e-2) if name in ("k", "v")
+                   else dict(rtol=1e-4, atol=1e-4)))
+
+
+def test_grow_cache_copies_recurrent_state():
+    """grow_cache pads the local layers' k/v and leaves each state leaf's
+    values as they were, in a tensor of its own."""
+    cfg = smoke_config(R.get_arch("recurrentgemma-2b"))
+    cache = C.build_cache(cfg, 2, 8, device="cpu")
+    cache["scan"][0]["h"].fill_(3)
+    grown = C.grow_cache(cache, 2)
+    assert grown["scan"][2]["k"].shape[2] == 10
+    assert torch.equal(grown["scan"][0]["h"], cache["scan"][0]["h"])
+    assert grown["rem"][0]["conv"].shape == cache["rem"][0]["conv"].shape
+    grown["scan"][0]["h"].zero_()
+    assert bool((cache["scan"][0]["h"] == 3).all())
