@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``
-(about 800–1200 s on an H100, the build included).
+(about 1000 s on an H100, the build included).
 It imports only ``repro_torch``, torch, numpy and the standard library, and
 exits non-zero at the first failed check.  Phases, each printing its lines:
 
@@ -196,6 +196,26 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    a long_500k decode step of each model on a cache built for 524288 rows
    (its bytes == ``cache_bytes``) beside the same step at write_pos 4095;
    the phase within 150 s.
+17. enc-dec and VLM serving at full width and depth, random weights from a
+   seed drawn straight into bf16, after phase 16's models are freed:
+   whisper-large-v3 (a 32-layer bidirectional encoder over 1500 frame
+   embeddings, 32 decoder layers with cross-attention, 20 heads of 64; 3.91
+   GB): (17a) the encoder on 8 utterances timed, a teacher-forced (8, 448)
+   ``make_prefill_step`` with kernel 3 (32 launches, G 1) and with the
+   plain attention, held to the bf16 gate, then a 224-token prefill,
+   grow_cache and 32 decode steps, each against a full forward (0.15,
+   correlation > 0.99); llava-next-34b (60 layers, d_model 7168, 56|8
+   heads of 128; 68.88 GB): (17b) a (1, 576 image rows + 3520 tokens)
+   prefill with kernel 3 (60 launches, G 7) and plain, the bf16 gate;
+   layer 0's K history streamed through kernel 2's sketch in 16-row
+   flushes, bit for bit its one-shot sketch; grow_cache and 16 decode
+   steps against full forwards; the kernel and plain engines in text-only
+   bf16 lockstep (4 slots x 2048, rank-32 sketches swapping every 64 rows,
+   4 prompts of 128, 64 new; kernel 4 at G 7), then kernel 4 at the final
+   state against its plain version, timed by events, graph and profiler;
+   (17c) kernel 3 alone at (1, 4096, 56|8, 128) and (8, 448, 20|20, 64)
+   against its plain version, by CUDA events and a CUDA-graph replay,
+   beside SDPA and its bound; the phase within 200 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -707,7 +727,7 @@ def phase6_prefill(torch, gen, cfg, weights, card) -> dict:
               f"flash launches {launches} != {pcfg.n_layers}")
         check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
         check(ok, f"prefill logits ({act}): kernel path disagrees with the plain path")
-        grown = cache_mod.grow_cache(cache, 1)
+        grown = cache_mod.grow_cache(cache, 1, kcfg)
         del cache
         got, _ = R.make_serve_step(kcfg)(params, {
             "tokens": tokens[:, PREFILL_SEQ:], "cache": grown,
@@ -3135,7 +3155,7 @@ def _phase14(torch, dev, card) -> dict:
 
     # -- 14b: grow_cache + one decode step vs a full forward over S + 1 ----
     t_sub = time.perf_counter()
-    grown = cache_mod.grow_cache(cache, 1)
+    grown = cache_mod.grow_cache(cache, 1, cfg)
     del cache
     got, _ = R.make_serve_step(kcfg)(weights, {
         "tokens": tokens[:, MOE_PREFILL_SEQ:], "cache": grown,
@@ -3418,7 +3438,6 @@ def phase15_mla(torch, dev, card) -> dict:
 def _phase15(torch, dev, card) -> dict:
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import shgemm_fused as k2
-    from repro_torch.core import projection as proj
     from repro_torch.launch import serve as launch
     from repro_torch.models import cache as cache_mod
     from repro_torch.models import moe
@@ -3488,7 +3507,7 @@ def _phase15(torch, dev, card) -> dict:
 
     # -- 15b: grow_cache + one absorbed decode step vs a full forward -----
     t_sub = time.perf_counter()
-    grown = cache_mod.grow_cache(cache, 1)
+    grown = cache_mod.grow_cache(cache, 1, cfg)
     del cache, logits
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3728,13 +3747,6 @@ def _phase15(torch, dev, card) -> dict:
     state, rows = streamed[m._kv_paths[0]]
     a = rows[0].float().contiguous()
     p_w = state.p
-    kern = (lambda: fused_at_row_offset(a, state.key_omega, p_w, 0))
-    omega32 = proj.fused_omega(state.key_omega, (a.shape[1], p_w), device=dev).float()
-    t_k, d_k = median_ms(torch, kern), device_ms(torch, kern)
-    t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, state.key_omega, p_w))
-    t_l, d_l = median_ms(torch, lambda: torch.matmul(a, omega32)), \
-        device_ms(torch, lambda: torch.matmul(a, omega32))
-    t_b, by = bound_ms(pos, a.shape[1], p_w, 2, 0)
     print(f"[mla] 15f slot {slot}'s latents ({pos} rows; {len(streamed)} paths, "
           f"ckv {tuple(streamed[m._kv_paths[0]][1].shape)} ... kr) streamed "
           f"through kv_sketch_init(method='shgemm_fused') + kv_sketch_append in "
@@ -3743,18 +3755,13 @@ def _phase15(torch, dev, card) -> dict:
           f"every head's sketch == kernel 2's one-shot sketch of its history bit "
           f"for bit: {bitwise}; one-shot vs shgemm_fused_plain max abs err "
           f"{err:.3e} (rtol 1e-5, atol 1e-4) [{card}]")
-    print(f"[time] shgemm_fused mla 15f ({pos}x{a.shape[1]} @ {a.shape[1]}x{p_w}, "
-          f"gaussian bf16, 2 terms): kernel {t_k:.4f} ms (device {fmt_dev(d_k)} "
-          f"ms), plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
-          f"{fmt_dev(d_l)} ms), bound {t_b:.4f} ms ({by}) [{card}]")
+    times = kernel2_sketch_times(torch, dev, "mla 15f", a, state.key_omega, p_w, card)
     check(launches == expected and launches > 0,
           f"15f: kernel 2 launches {launches} != {expected}")
     check(bitwise, "15f: the streamed latent sketch differs from the one-shot sketch")
     out["15f"] = {"launches": launches, "shape": [pos, a.shape[1], p_w],
-                  "max_abs_err": err, "ms": t_k, "device_ms": d_k[0],
-                  "plain_ms": t_p, "library_ms": t_l, "library_device_ms": d_l[0],
-                  "bound_ms": t_b, "bound_by": by}
-    del streamed, state, rows, a, omega32, sch, m, weights
+                  "max_abs_err": err, **times}
+    del streamed, state, rows, a, sch, m, weights
     torch.cuda.empty_cache()
     sub["15f"] = time.perf_counter() - t_sub
 
@@ -3969,7 +3976,6 @@ def lone_engine_run(torch, dev, cfg, weights, prompt, slot):
 
 def _phase16(torch, dev, card) -> dict:
     from repro_torch import stream
-    from repro_torch.core import projection as proj
     from repro_torch.kernels import factored_decode as k4
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import shgemm_fused as k2
@@ -4152,13 +4158,6 @@ def _phase16(torch, dev, card) -> dict:
     kern = (lambda: fused_at_row_offset(a, state.base.key_omega, p_w, 0))
     plain = k2.shgemm_fused_plain(a, state.base.key_omega, p_w)
     err = (kern() - plain).abs().max().item()
-    omega32 = proj.fused_omega(state.base.key_omega, (a.shape[1], p_w),
-                               device=dev).float()
-    t_k, d_k = median_ms(torch, kern), device_ms(torch, kern)
-    t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, state.base.key_omega, p_w))
-    t_l, d_l = median_ms(torch, lambda: torch.matmul(a, omega32)), \
-        device_ms(torch, lambda: torch.matmul(a, omega32))
-    t_b, by = bound_ms(window, a.shape[1], p_w, 2, 0)
     expected = window // flush
     print(f"[rec] 16e slot {slot}'s window after the drain (pos {pos}; {path}, "
           f"period 0: {tuple(rows.shape)}) streamed through kv_rolling_init(method="
@@ -4167,19 +4166,15 @@ def _phase16(torch, dev, card) -> dict:
           f"x 1 kv head: {launches == expected}); finalize == the one-shot sketch "
           f"of the window bit for bit: {bitwise}; kernel vs shgemm_fused_plain max "
           f"abs err {err:.3e} (rtol 1e-5, atol 1e-4) [{card}]")
-    print(f"[time] shgemm_fused recurrent 16e ({window}x{a.shape[1]} @ "
-          f"{a.shape[1]}x{p_w}, gaussian bf16, 2 terms): kernel {t_k:.4f} ms (device "
-          f"{fmt_dev(d_k)} ms), plain {t_p:.4f} ms, f32 matmul {t_l:.4f} ms (device "
-          f"{fmt_dev(d_l)} ms), bound {t_b:.4f} ms ({by}) [{card}]")
+    times = kernel2_sketch_times(torch, dev, "recurrent 16e", a, state.base.key_omega,
+                                 p_w, card)
     check(launches == expected, f"16e: kernel 2 launches {launches} != {expected}")
     check(bitwise, "16e: the rolling sketch's finalize != the one-shot window sketch")
     check(torch.allclose(kern(), plain, rtol=1e-5, atol=1e-4),
           "16e: kernel 2 disagrees with its plain version")
     out["16e"] = {"launches": launches, "shape": [window, a.shape[1], p_w],
-                  "max_abs_err": err, "ms": t_k, "device_ms": d_k[0],
-                  "plain_ms": t_p, "library_ms": t_l, "library_device_ms": d_l[0],
-                  "bound_ms": t_b, "bound_by": by}
-    del state, fin, fresh, rows, a, omega32, sch, m
+                  "max_abs_err": err, **times}
+    del state, fin, fresh, rows, a, sch, m
     sub["16e"] = time.perf_counter() - t_sub
 
     # -- 16d (recurrentgemma): a long_500k decode step ---------------------
@@ -4253,7 +4248,7 @@ def _phase16(torch, dev, card) -> dict:
     torch.cuda.synchronize()
     t_sl = (time.perf_counter() - t0) * 1e3
     n_sl = sum(1 for sp in cfg.layer_specs() if sp.mixer == "slstm")
-    grown = cache_mod.grow_cache(cache, 1)
+    grown = cache_mod.grow_cache(cache, 1, cfg)
     ok, diff, corr, t_dec = decode_vs_forward(torch, kcfg, weights, grown, tokens,
                                               XL_PREFILL_SEQ)
     print(f"[rec] 16c {cfg.name} (1, {XL_PREFILL_SEQ}) make_prefill_step: "
@@ -4349,6 +4344,502 @@ def _phase16(torch, dev, card) -> dict:
           f"0 before the run) [{card}]")
     check(out["seconds"] <= PHASE16_LIMIT_S,
           f"phase 16 took {out['seconds']:.1f} s > {PHASE16_LIMIT_S} s")
+    return out
+
+
+# Phase 17: enc-dec and VLM serving at full width and depth, random weights
+# from a seed drawn straight into bf16 (PERF.md section 4).  whisper-large-v3
+# (a 32-layer bidirectional encoder over 1500 frame embeddings and 32
+# decoder layers with cross-attention; d_model 1280, 20 heads of 64; 3.91
+# GB): 8 utterances, a teacher-forced decoder prefill of 448 tokens (its
+# published text context, max_target_positions), then a 224-token prefill
+# and 32 decode steps.  llava-next-34b (60 layers, d_model 7168, 56|8 heads
+# of 128, 576 image rows; 68.88 GB): a (1, 576 + 3520) prefill, cut from
+# 32768 by memory (the KV alone 8.05 GB there and the plain path's f32
+# score chunk 7.5 GB beside the weights), 16 decode steps, and a text-only
+# lockstep of the kernel and plain engines (the reference's Engine takes no
+# image).  Kernel 3 runs at G 1 (whisper) and G 7 (llava), kernel 4 at G 7,
+# kernel 2 on llava's K sketches.
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "llava-next-34b"
+WH_BATCH, WH_TEXT = 8, 448                       # 17a
+WH_DECODE_PREFIX, WH_DECODE_STEPS = 224, 32      # 17a
+LV_TEXT = 3520                                   # 17b: 576 + 3520 = 4096 rows
+LV_DECODE_STEPS = 16                             # 17b
+LV_ENGINE_KW = dict(slots=4, max_seq=2048, kv_sketch_rank=32, kv_compress_ratio=2.0)
+LV_PROMPTS, LV_PROMPT_LEN, LV_MAX_NEW = 4, 128, 64   # 17b lockstep
+PHASE17_LIMIT_S = 200.0
+
+
+def phase17_encdec_vlm(torch, dev, card) -> dict:
+    """Phase 17: whisper-large-v3 and llava-next-34b through the serving
+    entry points at full width and depth: (17a) whisper's encoder, its
+    decoder prefill on the kernel and plain paths, grow_cache + 32 decode
+    steps against full forwards; (17b) llava's prefill with its image rows
+    on both paths, its layer-0 K history sketched through kernel 2, 16
+    decode steps against full forwards, the kernel and plain engines in
+    lockstep, kernel 4 at G 7 on the final state; (17c) kernel 3 alone at G
+    7 and G 1."""
+    with torch.inference_mode():       # serving: no autograd bookkeeping
+        return _phase17(torch, dev, card)
+
+
+def decode_steps_vs_forward(torch, kcfg, weights, cache, tokens, start, steps,
+                            extra, floor=None):
+    """``steps`` teacher-forced decode steps on ``cache`` (grown by ``steps``
+    rows) from write_pos ``start`` (the prefill's rows, image rows
+    included), each against a full forward over every token up to it, at
+    the reference's 0.15 with correlation > 0.99; where a bf16 ulp of the
+    logits exceeds 0.15 (whisper's tied logits reach ~1000, an ulp of 8),
+    the bf16 gate of phase 6 instead; given ``floor`` (the bf16 plain
+    path's own max |d| from the f32 path, ``f32_anchor``), max |d| <= 1.5x
+    it passes too.  Returns (worst max |d|, least correlation, |logit|
+    max, ms a step, the worst step's message)."""
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    step = R.make_serve_step(kcfg)
+    n_img = start - (tokens.shape[1] - steps)
+    worst, least, peak, times, worst_msg = 0.0, 1.0, 0.0, [], ""
+    for i in range(steps):
+        col = tokens.shape[1] - steps + i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = step(weights, {"tokens": tokens[:, col:col + 1], "cache": cache,
+                                "write_pos": start + i})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        want = R._final_logits(kcfg, T.forward(kcfg, weights, tokens[:, :col + 1],
+                                               last_only=True, **extra).logits[:, -1])
+        corr = torch.corrcoef(torch.stack([got.ravel(), want.ravel()]))[0, 1].item()
+        ok, msg = logits_agree(torch, got, want, "bfloat16", 0.15)
+        d = (got - want).abs().max().item()
+        ok = (ok or bool(torch.allclose(got, want, rtol=0.15, atol=0.15))
+              or (floor is not None and d <= 1.5 * floor))
+        check(ok and corr > 0.99,
+              f"decode step {i} at write_pos {start + i} ({n_img} image rows) "
+              f"disagrees with the full forward: {msg}")
+        if d >= worst:
+            worst, worst_msg = d, msg
+        least, peak = min(least, corr), max(peak, want.abs().max().item())
+    return worst, least, peak, sorted(times)[len(times) // 2], worst_msg
+
+
+def flash_case(torch, gen, label, b, s, h, kvh, hd, card) -> dict:
+    """Kernel 3 at (b, s, h|kvh, hd) bf16 causal against its plain version,
+    then timed by CUDA events and by a CUDA-graph replay beside its plain
+    version, ``scaled_dot_product_attention`` (the library call) and its
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=gen.device)
+               .to(torch.bfloat16) for n in (h, kvh, kvh))
+    got = k3.flash_attention(q, k, v, causal=True)
+    want = k3.flash_attention_plain(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+          and rel <= FLASH_ROW_REL["bfloat16"],
+          f"flash_attention {label} disagrees with plain")
+    del got, want
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    call = (lambda: k3.flash_attention(q, k, v, causal=True))
+    t_k, t_g = median_ms(torch, call), graph_ms(torch, call, n=10)
+    t_p = median_ms(torch, lambda: k3.flash_attention_plain(q, k, v, causal=True))
+    t_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    t_ops = k3.causal_flops(b, s, h, hd) / PEAK_TC_FLOP_PER_S
+    t_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_PER_S
+    bound, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[time] flash_attention {label} ({b}, {s}, {h}|{kvh}, {hd}) G {h // kvh} "
+          f"bf16 causal: max|kernel-plain| {err:.3e} (rtol 2e-2, atol 3e-2), "
+          f"largest row ||kernel-plain||/||plain|| {rel:.3e} (bound "
+          f"{FLASH_ROW_REL['bfloat16']}); kernel {t_k:.4f} ms by CUDA events, "
+          f"{t_g:.4f} ms a launch in a CUDA graph, plain {t_p:.3f} ms, "
+          f"scaled_dot_product_attention {t_l:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"graph/bound {t_g / bound:.2f}x, "
+          f"{k3.causal_flops(b, s, h, hd) / t_g / 1e9:.1f} TFLOP/s [{card}]")
+    return {"shape": [b, s, h, kvh, hd], "max_abs_err": err, "row_rel_err": rel,
+            "ms": t_k, "graph_ms": t_g, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": bound, "bound_by": by}
+
+
+def kernel2_sketch_times(torch, dev, label, a, key, p_w, card) -> dict:
+    """Kernel 2 on one (rows, d) history at Omega row 0: CUDA events, the
+    profiler's device time with the launches its trace held, a launch
+    replayed from a CUDA graph (which the profiler cannot lose), the plain
+    version, cuBLAS's f32 matmul of the same product likewise, and the
+    bound."""
+    from repro_torch.core import projection as proj
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.stream.state import fused_at_row_offset
+    kern = (lambda: fused_at_row_offset(a, key, p_w, 0))
+    omega32 = proj.fused_omega(key, (a.shape[1], p_w), device=dev).float()
+    lib = (lambda: torch.matmul(a, omega32))
+    t_k, d_k, g_k = median_ms(torch, kern), device_ms(torch, kern), graph_ms(torch, kern)
+    t_p = median_ms(torch, lambda: k2.shgemm_fused_plain(a, key, p_w))
+    t_l, d_l, g_l = median_ms(torch, lib), device_ms(torch, lib), graph_ms(torch, lib)
+    t_b, by = bound_ms(a.shape[0], a.shape[1], p_w, 2, 0)
+    print(f"[time] shgemm_fused {label} ({a.shape[0]}x{a.shape[1]} @ "
+          f"{a.shape[1]}x{p_w}, gaussian bf16, 2 terms): kernel {t_k:.4f} ms by CUDA "
+          f"events, {g_k:.4f} ms a launch in a CUDA graph, device {fmt_dev(d_k)} ms; "
+          f"plain {t_p:.4f} ms; f32 matmul {t_l:.4f} ms, graph {g_l:.4f} ms, device "
+          f"{fmt_dev(d_l)} ms; bound {t_b:.4f} ms ({by}) [{card}]")
+    return {"ms": t_k, "graph_ms": g_k, "device_ms": d_k[0],
+            "device_launches_traced": list(d_k[1:]), "plain_ms": t_p,
+            "library_ms": t_l, "library_graph_ms": g_l, "library_device_ms": d_l[0],
+            "bound_ms": t_b, "bound_by": by}
+
+
+def _phase17(torch, dev, card) -> dict:
+    from repro_torch.kernels import factored_decode as k4
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import shgemm_fused as k2
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kv_compress
+    from repro_torch.serve.engine import Engine
+    from repro_torch.stream.state import fused_at_row_offset
+    t_phase = time.perf_counter()
+    out, sub = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(1717)
+
+    def draw(cfg):
+        base = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        w = T.cast_params_for_compute(
+            cfg, launch.init_weights(cfg, seed=0, device=dev, compute_dtype=True))
+        torch.cuda.synchronize()
+        nbytes = sum(x.numel() * x.element_size() for x in w.values())
+        print(f"[encdec] {cfg.name}: {T.param_count(cfg) / 1e9:.3f} B parameters at "
+              f"the published widths ({cfg.n_layers} layers"
+              + (f" + a {cfg.encdec.enc_layers}-layer encoder over "
+                 f"{cfg.encdec.enc_seq} frames" if cfg.encdec else "")
+              + (f", {cfg.vlm.num_image_tokens} image rows" if cfg.vlm else "")
+              + f", d_model {cfg.d_model}, {cfg.n_heads}|{cfg.n_kv_heads} heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), drawn in bf16 "
+              f"from seed 0: {nbytes / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} "
+              f"s; device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+              f"GiB ({base:.2f} GiB before the draw) [{card}]")
+        return w
+
+    def prefill_pair(tag, cfg, kcfg, weights, tokens, extra, bf16_gate=True):
+        """make_prefill_step on the kernel path (counted from 0, timed on a
+        first and a second call) and on the plain path, held to the bf16
+        gate, or else (``bf16_gate`` False) to ``f32_anchor``'s checks."""
+        torch.cuda.reset_peak_memory_stats()
+        k3.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, cache = launch.run_prefill(kcfg, weights, tokens, **extra)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        launches = k3.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del cache
+        t0 = time.perf_counter()
+        logits_k2, cache = launch.run_prefill(kcfg, weights, tokens, **extra)
+        torch.cuda.synchronize()
+        t_k2 = time.perf_counter() - t0
+        k3.launches = 0
+        t0 = time.perf_counter()
+        logits_p, cache_p = launch.run_prefill(cfg, weights, tokens, **extra)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        plain_launches = k3.launches
+        del cache_p
+        ok, msg = logits_agree(torch, logits_k, logits_p, "bfloat16", 5e-2)
+        rows = tokens.shape[1] + (cfg.vlm.num_image_tokens if cfg.vlm else 0)
+        print(f"[encdec] {tag} {cfg.name} ({tokens.shape[0]}, {rows}) "
+              f"make_prefill_step: kernel path {t_k * 1e3:.1f} ms first call, "
+              f"{t_k2 * 1e3:.1f} ms second (kernel 3 launches {launches}, G "
+              f"{cfg.n_heads // cfg.n_kv_heads}), plain attention {t_p * 1e3:.1f} ms "
+              f"(launches {plain_launches}); peak memory {peak:.2f} GiB; "
+              f"last-position logits kernel vs plain: {msg} [{card}]")
+        check(launches == cfg.n_layers,
+              f"{tag}: flash launches {launches} != {cfg.n_layers}")
+        check(plain_launches == 0, f"{tag}: the plain path launched kernel 3")
+        check(bool(torch.isfinite(logits_k).all()), f"{tag}: prefill logits not finite")
+        res = {"launches": launches, "ms_first": t_k * 1e3, "ms_second": t_k2 * 1e3,
+               "ms_plain": t_p * 1e3, "peak_gib": peak,
+               "err": (logits_k - logits_p).abs().max().item(), "bf16_gate": ok}
+        if bf16_gate:
+            check(ok, f"{tag}: the kernel path's prefill logits disagree with the plain path's")
+        else:
+            res.update(f32_anchor(tag, cfg, weights, tokens, extra, logits_k, logits_p))
+        return cache, res
+
+    def f32_anchor(tag, cfg, weights, tokens, extra, logits_k, logits_p):
+        """Where bf16 rounding alone moves the logits past the bf16 gate (both
+        bf16 paths equally far from the f32 one; PERF.md section 6):
+        kernel 3 against its plain version on every layer's own inputs of
+        the bf16 prefill (``FLASH_ROW_REL``), the two paths in f32
+        activations on the same bf16 weights at the reference's 5e-2, and
+        the bf16 kernel path no farther from the f32 plain path than 1.5x
+        the bf16 plain path (max |d| and 1 - correlation)."""
+        rows, orig = [], kops.flash_attention
+
+        def held(q, k, v, *, causal=True, scale=None):
+            out = orig(q, k, v, causal=causal, scale=scale)
+            want = k3.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+            rows.append((row_rel_err(out, want), (out.float() - want.float()).abs().max().item()))
+            return out
+        kops.flash_attention = held
+        try:
+            launch.run_prefill(cfg.with_(use_flash_kernel=True), weights, tokens, **extra)
+        finally:
+            kops.flash_attention = orig
+        rel, err = max(r for r, _ in rows), max(e for _, e in rows)
+        f32 = cfg.with_(activation_dtype="float32")
+        ex32 = {k: v.float() for k, v in extra.items()}
+        k32, c = launch.run_prefill(f32.with_(use_flash_kernel=True), weights, tokens, **ex32)
+        del c
+        p32, c = launch.run_prefill(f32, weights, tokens, **ex32)
+        del c
+        ok32, msg32 = logits_agree(torch, k32, p32, "float32", 5e-2)
+
+        def dist(a):
+            corr = torch.corrcoef(torch.stack([a.ravel(), p32.ravel()]))[0, 1].item()
+            return (a - p32).abs().max().item(), 1.0 - corr
+        dk, dp = dist(logits_k), dist(logits_p)
+        near = dk[0] <= 1.5 * dp[0] and dk[1] <= 1.5 * dp[1]
+        print(f"[encdec] {tag} bf16 gate kernel vs plain: not held (bf16 rounding of "
+              f"the stack, below); kernel 3 against its plain version on each of the "
+              f"{len(rows)} layers' own inputs: largest row ||kernel-plain||/||plain|| "
+              f"{rel:.3e} (bound {FLASH_ROW_REL['bfloat16']}), max|d| {err:.3e}; f32 "
+              f"activations (bf16 weights) kernel vs plain: {msg32}; against the f32 "
+              f"plain path (max|d|, 1 - correlation): bf16 kernel path ({dk[0]:.4e}, "
+              f"{dk[1]:.3e}), bf16 plain path ({dp[0]:.4e}, {dp[1]:.3e}): kernel within "
+              f"1.5x the plain path's own bf16 error {near} [{card}]")
+        check(rel <= FLASH_ROW_REL["bfloat16"],
+              f"{tag}: kernel 3 disagrees with plain on a layer's inputs ({rel:.3e})")
+        check(ok32, f"{tag}: f32 activations: kernel path disagrees with the plain path")
+        check(near, f"{tag}: the bf16 kernel path is farther from the f32 path than "
+                    f"1.5x the bf16 plain path: {dk} vs {dp}")
+        return {"layer_row_rel_err": rel, "layer_max_abs_err": err,
+                "f32_max_diff": (k32 - p32).abs().max().item(),
+                "bf16_kernel_vs_f32": list(dk), "bf16_plain_vs_f32": list(dp)}
+
+    # -- 17a: whisper-large-v3 ---------------------------------------------
+    t_sub = time.perf_counter()
+    cfg = R.get_arch(ENCDEC_ARCH)
+    kcfg = cfg.with_(use_flash_kernel=True)
+    weights = draw(cfg)
+    enc = launch.stub_embeds(cfg, WH_BATCH, seed=2, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (WH_BATCH, WH_TEXT), generator=gen, device=dev)
+    enc_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc_out = T.encoder_forward(cfg, weights, enc["enc_embeds"])
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(enc_out).all()), "17a: encoder output not finite")
+    print(f"[encdec] 17a {cfg.name} encoder over ({WH_BATCH}, {cfg.encdec.enc_seq}, "
+          f"{cfg.d_model}) frame embeddings (0.01 N(0, 1), seed 2; bidirectional, "
+          f"the plain attention): {enc_ms[0]:.1f} ms first call, {enc_ms[1]:.1f} ms "
+          f"second [{card}]")
+    del enc_out
+    cache, res = prefill_pair("17a", cfg, kcfg, weights, tokens, enc)
+    xk = cache["scan"][0]["xk"]
+    check(tuple(xk.shape[1:]) == (WH_BATCH, cfg.encdec.enc_seq, cfg.n_kv_heads,
+                                  cfg.head_dim), f"17a: xk leaf {tuple(xk.shape)}")
+    del cache, xk
+    out["17a"] = {"encoder_ms": enc_ms, **res}
+    # grow_cache + 32 decode steps on a 224-token prefill, each against a full
+    # forward (the encoder's K/V ride in the cache; the forwards rerun it)
+    pre = WH_DECODE_PREFIX
+    torch.cuda.reset_peak_memory_stats()
+    _, cache = launch.run_prefill(kcfg, weights, tokens[:, :pre], **enc)
+    grown = cache_mod.grow_cache(cache, WH_DECODE_STEPS, cfg)
+    del cache
+    worst, least, peak_logit, dec_ms, msg = decode_steps_vs_forward(
+        torch, kcfg, weights, grown, tokens[:, :pre + WH_DECODE_STEPS], pre,
+        WH_DECODE_STEPS, enc)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[encdec] 17a grow_cache + {WH_DECODE_STEPS} decode steps of {WH_BATCH} "
+          f"utterances from write_pos {pre}, each against a full forward (encoder "
+          f"included; rtol = atol = 0.15 or the bf16 gate, correlation > 0.99): "
+          f"worst step {msg}; least correlation {least:.6f}; "
+          f"decode step {dec_ms:.2f} ms (median); peak memory {peak:.2f} GiB [{card}]")
+    out["17a"].update({"decode_max_diff": worst, "decode_logit_max": peak_logit,
+                       "decode_corr": least,
+                       "decode_ms": dec_ms, "decode_peak_gib": peak})
+    del grown, weights, enc, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub["17a"] = time.perf_counter() - t_sub
+
+    # -- 17b: llava-next-34b -------------------------------------------------
+    t_sub = time.perf_counter()
+    cfg = R.get_arch(VLM_ARCH)
+    kcfg = cfg.with_(use_flash_kernel=True)
+    h, kvh, hd, n_layers = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    n_img = cfg.vlm.num_image_tokens
+    weights = draw(cfg)
+    img = launch.stub_embeds(cfg, 1, seed=2, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, LV_TEXT + LV_DECODE_STEPS), generator=gen,
+                           device=dev)
+    cache, res = prefill_pair("17b", cfg, kcfg, weights, tokens[:, :LV_TEXT], img,
+                              bf16_gate=False)
+    out["17b"] = res
+    # kernel 2 on the K sketches: layer 0's K history of the 4096 rows (image
+    # and text), 8 kv heads at Omega rows h * 128, in the engine's 16-row
+    # flushes, against the one-shot sketch and the plain version
+    rows = cache["scan"][0]["k"][0, 0].transpose(0, 1)        # (KV, S, hd)
+    pos = rows.shape[1]
+    flush = 16
+    key = (0x5EED, 17)
+    k2.launches = 0
+    state = kv_compress.kv_sketch_init(key, kvh, hd, pos, LV_ENGINE_KW["kv_sketch_rank"],
+                                       method="shgemm_fused", device=dev)
+    for start in range(0, pos, flush):
+        state = kv_compress.kv_sketch_append(state, rows[:, start:start + flush], start)
+    torch.cuda.synchronize()
+    launches2 = k2.launches
+    bitwise, err2 = True, 0.0
+    for j in range(kvh):
+        one = fused_at_row_offset(rows[j].float(), state.key_omega, state.p, j * hd)
+        plain = k2.shgemm_fused_plain(rows[j].float(), state.key_omega, state.p,
+                                      row_offset=j * hd)
+        bitwise &= torch.equal(state.y[j, :pos], one)
+        err2 = max(err2, (one - plain).abs().max().item())
+        check(torch.allclose(one, plain, rtol=1e-5, atol=1e-4),
+              f"17b: kernel 2 on head {j} disagrees with plain")
+    expected = -(-pos // flush) * kvh
+    print(f"[encdec] 17b layer-0 K history ({kvh}, {pos}, {hd}) streamed through "
+          f"kv_sketch_init(method='shgemm_fused') + kv_sketch_append in {flush}-row "
+          f"flushes: kernel 2 launches {launches2} (= {-(-pos // flush)} flushes x "
+          f"{kvh} kv heads: {launches2 == expected}); every head's sketch == kernel "
+          f"2's one-shot sketch bit for bit: {bitwise}; one-shot vs plain max abs err "
+          f"{err2:.3e} (rtol 1e-5, atol 1e-4) [{card}]")
+    check(launches2 == expected, f"17b: kernel 2 launches {launches2} != {expected}")
+    check(bitwise, "17b: the streamed K sketch differs from the one-shot sketch")
+    a = rows[0].float().contiguous()
+    sketch = kernel2_sketch_times(torch, dev, "vlm 17b", a, state.key_omega, state.p,
+                                  card)
+    out["17b_sketch"] = {"launches": launches2, "shape": [pos, hd, state.p],
+                         "max_abs_err": err2, **sketch}
+    del rows, state, a, one, plain
+    # grow_cache + 16 decode steps against full forwards (image rows included)
+    grown = cache_mod.grow_cache(cache, LV_DECODE_STEPS, cfg)
+    del cache
+    torch.cuda.reset_peak_memory_stats()
+    floor = out["17b"]["bf16_plain_vs_f32"][0]
+    worst, least, peak_logit, dec_ms, msg = decode_steps_vs_forward(
+        torch, kcfg, weights, grown, tokens, n_img + LV_TEXT, LV_DECODE_STEPS, img,
+        floor=floor)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[encdec] 17b grow_cache + {LV_DECODE_STEPS} decode steps from write_pos "
+          f"{n_img + LV_TEXT} ({n_img} image rows + {LV_TEXT} tokens), each against a "
+          f"full forward (rtol = atol = 0.15, the bf16 gate or max|d| <= 1.5 x "
+          f"{floor:.4f}, the bf16 plain path's own distance from the f32 path; "
+          f"correlation > 0.99): worst step {msg}; least correlation {least:.6f}; "
+          f"decode step {dec_ms:.2f} ms (median); peak memory {peak:.2f} GiB [{card}]")
+    out["17b"].update({"decode_max_diff": worst, "decode_logit_max": peak_logit,
+                       "decode_corr": least,
+                       "decode_ms": dec_ms, "decode_peak_gib": peak})
+    del grown, img, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the text-only lockstep of the kernel and plain engines: kernel 4 at G 7
+    prompts = launch.make_prompts(LV_PROMPTS, LV_PROMPT_LEN, cfg.vocab, seed=1)
+    engines = [Engine(cfg, weights, device=dev, **LV_ENGINE_KW),
+               Engine(kcfg, weights, device=dev, **LV_ENGINE_KW)]
+    torch.cuda.reset_peak_memory_stats()
+    k4.launches = 0
+    t0 = time.perf_counter()
+    res = launch.lockstep(engines, prompts, max_new=LV_MAX_NEW,
+                          compare=lambda got, want: (
+                              *bf16_agreement(torch, got, want),
+                              bool((got.argmax(-1) == want.argmax(-1)).all()),
+                              (got - want).abs().max().item()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches4 = k4.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist_p, hist_k = res["comp_len"]
+    kern = engines[1]
+    swaps = [sum(1 for x, y in zip([[0] * kern.slots] + hist_k, hist_k) if y[s] > x[s])
+             for s in range(kern.slots)]
+    corr = min(c for c, _, _, _ in res["compared"])
+    excess = max(e for _, e, _, _ in res["compared"])
+    same_tokens = sum(t for _, _, t, _ in res["compared"])
+    worst_d = max(d for _, _, _, d in res["compared"])
+    held = [t or (c > 0.9999 and e <= BF16_EXCESS) or (c > 0.99 and d <= 1.5 * floor)
+            for c, e, t, d in res["compared"]]
+    pool = sum(t.numel() * t.element_size() for e in engines
+               for g in ("pre", "scan", "rem") for layer in e.cache[g] or ()
+               for t in layer.values())
+    print(f"[encdec] 17b bf16 lockstep of the kernel and plain engines, text only "
+          f"({n_layers} layers, {LV_PROMPTS} prompts of {LV_PROMPT_LEN}, {LV_MAX_NEW} "
+          f"new, {LV_ENGINE_KW}; the two pools {pool / 1e9:.2f} GB): {res['steps']} "
+          f"decode steps in {wall:.1f} s; greedy tokens equal in {same_tokens} of "
+          f"{len(held)} steps; worst excess over 2 own ulps {excess:.2f} ulp at the "
+          f"median |logit| (<= {BF16_EXCESS}), least correlation {corr:.7f} (> "
+          f"0.9999), worst max|d| {worst_d:.4f}; steps with equal tokens, within the "
+          f"bf16 gate or within 1.5 x {floor:.4f} at correlation > 0.99 "
+          f"{sum(held)} of {len(held)}; kernel 4 launches {launches4} = {res['steps']} x "
+          f"{n_layers}: {launches4 == res['steps'] * n_layers}; comp_len equal "
+          f"{hist_p == hist_k}; swaps per slot {swaps}; peak memory {peak:.2f} GiB "
+          f"[{card}]")
+    check(launches4 == res["steps"] * n_layers,
+          f"17b: fdec launches {launches4} != {res['steps']} x {n_layers}")
+    check(hist_p == hist_k, "17b: comp_len histories differ between the engines")
+    check(min(swaps) >= 1, f"17b: a slot never compressed: {swaps}")
+    check(all(held), f"17b: the engines diverge: a step's tokens differ and its "
+                     f"logits miss the bf16 gate and the noise floor (excess "
+                     f"{excess:.2f}, correlation {corr:.7f}, max|d| {worst_d:.4f})")
+    out["17b"].update({"engine_steps": res["steps"], "engine_launches": launches4,
+                       "engine_excess": excess, "engine_corr": corr,
+                       "engine_same_tokens": same_tokens, "engine_max_diff": worst_d,
+                       "engine_seconds": wall, "engine_peak_gib": peak,
+                       "pool_gb": pool / 1e9})
+    # kernel 4 at the kernel engine's final state (layer 0) against its plain
+    # version, then timed (graph replay beside the profiler's count)
+    wp = int(max(kern.pos)) - 1
+    kc, vc = kern.cache["scan"][0]["k"][0], kern.cache["scan"][0]["v"][0]
+    f = {n: w[0] for n, w in kern.kv_fact["scan"][0].items()}
+    comp = torch.as_tensor(kern._kv_comp_len, device=dev)
+    qd = torch.randn((kern.slots, 1, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    args = (qd, kc, vc, f["k_us"], f["k_vt"], f["v_us"], f["v_vt"], comp)
+    got = k4.factored_decode_attention(*args, wp, scale=hd ** -0.5)
+    want = k4.factored_decode_plain(*args, wp, scale=hd ** -0.5)
+    err4 = (got.float() - want.float()).abs().max().item()
+    print(f"[kernels] factored_decode {cfg.name} 17b state ({kern.slots}, "
+          f"{kc.shape[1]}, {kvh}, {hd}) G {h // kvh} r={f['k_us'].shape[-1]} "
+          f"write_pos={wp} comp_len={[int(c) for c in comp.tolist()]}: "
+          f"max|kernel-plain| {err4:.3e} (tol 1e-2); decode_plan "
+          f"{k4.decode_plan(kern.slots, kvh, kc.shape[1], hd, 32, h // kvh)}")
+    check(torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2),
+          "factored_decode at 17b's state disagrees with plain")
+    state = fdec_state_times(torch, dev, f"{cfg.name} 17b state", args, wp, hd, 0.0, card)
+    state["max_abs_err"] = err4
+    out["fdec_state"] = state
+    del engines, kern, kc, vc, f, args, got, want, res, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub["17b"] = time.perf_counter() - t_sub
+
+    # -- 17c: kernel 3 alone at the two prefills' shapes ---------------------
+    t_sub = time.perf_counter()
+    out["17c"] = {
+        "G7": flash_case(torch, gen, f"{VLM_ARCH} 17c", 1, n_img + LV_TEXT, 56, 8, 128, card),
+        "G1": flash_case(torch, gen, f"{ENCDEC_ARCH} 17c", WH_BATCH, WH_TEXT, 20, 20, 64,
+                         card)}
+    sub["17c"] = time.perf_counter() - t_sub
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[encdec] phase 17 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sub.items())
+          + f"); kernel 3 launches in 17a's prefill {out['17a']['launches']} and "
+          f"17b's {out['17b']['launches']}, kernel 2 in 17b's sketches "
+          f"{out['17b_sketch']['launches']}, kernel 4 in 17b's lockstep "
+          f"{out['17b']['engine_launches']} (counts set to 0 before each run) [{card}]")
+    check(out["seconds"] <= PHASE17_LIMIT_S,
+          f"phase 17 took {out['seconds']:.1f} s > {PHASE17_LIMIT_S} s")
     return out
 
 
@@ -4781,6 +5272,11 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     rec16 = phase16_recurrent(torch, dev, card)
 
+    # -- 17. enc-dec and VLM: whisper-large-v3, llava-next-34b (69 GB) -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec17 = phase17_encdec_vlm(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -4817,6 +5313,8 @@ def run(torch) -> int:
     kernels[1]["mla"] = {"arch": MLA_ARCH, **mla15["15f"]}
     kernels[1]["recurrent_launches"] = rec16["16e"]["launches"]
     kernels[1]["recurrent"] = {"arch": REC_RG, **rec16["16e"]}
+    kernels[1]["vlm_launches"] = encdec17["17b_sketch"]["launches"]
+    kernels[1]["vlm"] = {"arch": VLM_ARCH, **encdec17["17b_sketch"]}
     kernels[0]["training_launches"]["world_ranks"] = [
         x["launches"] for x in train12["world"]["ranks"]]
     t_k, t_p, t_l, t_b, by = times8["flash_attention"]
@@ -4829,7 +5327,10 @@ def run(torch) -> int:
                     "library_ms": t_l, "autotuned": None,
                     "distributed_launches": 0,
                     "moe": {"arch": MOE_ARCH, "launches": {"14a": moe14["14a"]["launches"]},
-                            **moe14["flash"]}})
+                            **moe14["flash"]},
+                    "encdec_vlm": {"launches": {"17a": encdec17["17a"]["launches"],
+                                                "17b": encdec17["17b"]["launches"]},
+                                   **encdec17["17c"]}})
     fdec = times8["factored_decode"]["per_state"]
     kernels.append({"name": "factored_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/factored_decode.cu",
@@ -4841,12 +5342,13 @@ def run(torch) -> int:
                     "bound_ms": fdec[0]["bound_ms"],
                     "bound_by": fdec[0]["bound_by"], "library_ms": None,
                     "per_state": (fdec + sched13["fdec_per_state"]
-                                  + [moe14["fdec_state"]]),
+                                  + [moe14["fdec_state"], encdec17["fdec_state"]]),
                     "autotuned": tune11["factored_decode"],
                     "distributed_launches": 0,
                     "scheduler_launches": sched13["scheduler_launches"],
                     "moe_launches": {"14d": moe14["14d"]["launches"],
-                                     "14e": moe14["14e"]["launches"]}})
+                                     "14e": moe14["14e"]["launches"]},
+                    "vlm_launches": {"17b": encdec17["17b"]["engine_launches"]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

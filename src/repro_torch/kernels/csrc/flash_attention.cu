@@ -10,8 +10,13 @@
 // bf16 tensor-core work a layer (4.4 ms at 989 TFLOP/s) against 0.3 GB of
 // q/k/v/out (0.1 ms at 3.35 TB/s).  The design:
 //  * one block per (q block, batch * kv head), carrying all G query heads of
-//    its group (128 query rows), so each K/V tile is read from device memory
-//    once for the G heads; the (S, S) score matrix never exists;
+//    its group (bq = 16 * floor(8 / G) positions of each, G * bq <= 128
+//    live rows: 128 at G = 1, 2, 4, 8; 112 at G = 7), so each K/V tile is
+//    read from device memory once for the G heads; the (S, S) score matrix
+//    never exists.  Rows from G * bq up to 128 (a whole m16 tile each) are
+//    zero-filled, never loaded from another group's heads and never
+//    stored: a second instantiation (kDead) carries those checks, so the
+//    G that divide 8 run the kernel without them, its registers unchanged;
 //  * four warps of two m16 tiles (32 query rows) each: every K or V fragment
 //    loaded feeds two MMAs, which halves the shared-memory reads per MMA
 //    against one tile a warp, and two blocks share an SM (up to 255
@@ -164,7 +169,7 @@ struct Smem {
   static constexpr int BYTES = (QTILE + STAGES * 2 * TILE) * sizeof(T);
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kDead>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_kernel(const T* __restrict__ Q, const T* __restrict__ K,
                  const T* __restrict__ V, T* __restrict__ O, int S, int H,
@@ -186,19 +191,24 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int bq = ROWS / G;                          // query rows per head
+  // query rows per head, and the live block rows (all of them unless kDead)
+  const int bq = kDead ? 16 * (ROWS / 16 / G) : ROWS / G;
+  const int live = kDead ? G * bq : ROWS;
   const int nq = (S + bq - 1) / bq;
   const int iq = causal ? nq - 1 - blockIdx.x : blockIdx.x;  // heavy first
   const int bkv = blockIdx.y;
   const int b = bkv / KV, kvh = bkv % KV;
   const float sl2 = scale * LOG2E;
 
-  // Block row r is position iq * bq + r % bq of head kvh * G + r / bq; this
-  // warp owns rows (warp * MT + i) * 16 + [0, 16), one head each (bq >= 16).
+  // Block row r < live is position iq * bq + r % bq of head kvh * G + r /
+  // bq; this warp owns rows (warp * MT + i) * 16 + [0, 16), one head each
+  // (bq is a multiple of 16), or none where the tile is past `live`.
   int head[MT], pos0[MT];
+  bool lives[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
     const int row = (warp * MT + i) * 16;
+    lives[i] = !kDead || row < live;
     head[i] = kvh * G + row / bq;
     pos0[i] = iq * bq + row % bq;
   }
@@ -233,9 +243,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int idx = tid + i * THREADS;
     const int r = idx / CPR, col = (idx % CPR) * EPC;
     const int pos = iq * bq + r % bq;
+    const bool load = pos < S && (!kDead || r < live);
     const T* src = Q + ((static_cast<size_t>(b) * S + min(pos, S - 1)) * H +
-                        kvh * G + r / bq) * HD + col;
-    cp_async16(qs + r * STR + col, src, pos < S ? 16 : 0);
+                        kvh * G + (!kDead || r < live ? r / bq : 0)) * HD + col;
+    cp_async16(qs + r * STR + col, src, load ? 16 : 0);
   }
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) {
@@ -468,8 +479,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const int c = dt * 8 + 2 * t;
-      if (r0 < S) E::store2(o0 + c, acc[i][dt][0] * inv0, acc[i][dt][1] * inv0);
-      if (r1 < S) E::store2(o1 + c, acc[i][dt][2] * inv1, acc[i][dt][3] * inv1);
+      if (lives[i] && r0 < S) E::store2(o0 + c, acc[i][dt][0] * inv0, acc[i][dt][1] * inv0);
+      if (lives[i] && r1 < S) E::store2(o1 + c, acc[i][dt][2] * inv1, acc[i][dt][3] * inv1);
     }
   }
 }
@@ -479,8 +490,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KV, int causal, float scale,
            cudaStream_t stream) {
   const int G = H / KV;
-  const int nq = (S + ROWS / G - 1) / (ROWS / G);
-  auto kernel = flash_kernel<T, HD>;
+  const bool dead = (ROWS / 16) % G != 0;   // G = 3, 5, 6, 7
+  const int bq = 16 * (ROWS / 16 / G);
+  const int nq = (S + bq - 1) / bq;
+  auto kernel = dead ? flash_kernel<T, HD, true> : flash_kernel<T, HD, false>;
   constexpr int smem = Smem<T, HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -494,7 +507,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T, int HD>
 int blocks_per_sm() {
-  auto kernel = flash_kernel<T, HD>;
+  auto kernel = flash_kernel<T, HD, false>;
   constexpr int smem = Smem<T, HD>::BYTES;
   int blocks = -1;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -521,7 +534,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q/out (B, S, H, hd), k/v (B, S, KV, hd), contiguous, bf16 (is_f32 = 0) or
-// f32.  H / KV in {1, 2, 4, 8}; hd in {16, 32, 64, 128}; scale > 0.
+// f32.  H / KV in 1..8; hd in {16, 32, 64, 128}; scale > 0.
 // Launches on `stream` of `device`, does not synchronise, allocates
 // nothing.  Returns the first CUDA error (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -531,7 +544,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream_ptr, int device) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (KV <= 0 || H % KV || ROWS % (H / KV) || (ROWS / (H / KV)) % 16 ||
+  if (KV <= 0 || H % KV || H / KV < 1 || H / KV > ROWS / 16 ||
       S <= 0 || B * KV > 65535 ||
       !(scale > 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);

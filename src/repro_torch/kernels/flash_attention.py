@@ -4,7 +4,9 @@ Port of the Pallas TPU kernel ``_flash_kernel``
 (``repro/kernels/flash_attention.py``, entry ``flash_attention``) as
 hand-written CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``): one
 block per (q block, batch x kv head) carrying the G = H / KV query heads of
-its group (four warps of 32 query rows, two blocks an SM), the kv loop
+its group (four warps of 32 query rows, two blocks an SM; 16 * (8 // G)
+positions of each head, so any G from 1 to 8, with 128 - G * bq zero rows
+at G = 3, 5, 6, 7), the kv loop
 inside the block and only up to the causal diagonal, Q and 32-key K/V tiles
 copied into shared memory by ``cp.async`` (K/V through a two-tile ring),
 bf16 fragments by ``ldmatrix`` (V's transposed on the way), the mask only on
@@ -38,7 +40,7 @@ BLOCK_ROWS = 128
 WARPS = 4
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
-GROUPS = (1, 2, 4, 8)
+GROUPS = tuple(range(1, 9))
 # Query chunk of the plain version: scores are (B, KV, G, chunk, S) f32.
 PLAIN_CHUNK = 1024
 

@@ -21,7 +21,9 @@ Everything runs on the card unless ``--device cpu`` is given.
 
 ``chip_smoke.py`` calls ``run_prefill``, ``run_engine``, ``lockstep`` and
 ``run_scheduler`` at full width; the CPU tests call them on the smoke
-configs.
+configs.  whisper-large-v3's and llava-next-34b's stub frontends take
+embeddings, which ``stub_embeds`` draws and ``run_prefill`` forwards; the
+engine and the scheduler are text-only, as the reference's.
 """
 
 from __future__ import annotations
@@ -69,10 +71,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_prefill(cfg: ModelCfg, params: dict, tokens: torch.Tensor):
+def run_prefill(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
+                img_embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None):
     """Whole-prompt prefill (``make_prefill_step``): (last-position logits
-    (B, V) f32, the cache of every layer)."""
-    return R.make_prefill_step(cfg)(params, {"tokens": tokens})
+    (B, V) f32, the cache of every layer).  A VLM's image embeddings go
+    before the text; an enc-dec's frame embeddings go through its encoder
+    (``stub_embeds`` draws either)."""
+    batch = {"tokens": tokens}
+    if img_embeds is not None:
+        batch["img_embeds"] = img_embeds
+    if enc_embeds is not None:
+        batch["enc_embeds"] = enc_embeds
+    return R.make_prefill_step(cfg)(params, batch)
+
+
+def stub_embeds(cfg: ModelCfg, batch: int, *, seed: int = 2,
+                device=None) -> dict:
+    """The stub frontends' inputs of ``cfg`` for ``batch`` requests, drawn
+    as ``0.01 * N(0, 1)`` from a ``torch.Generator`` seeded with ``seed``,
+    in the activation dtype: a VLM's ``img_embeds`` (B, num_image_tokens,
+    D), an enc-dec's ``enc_embeds`` (B, enc_seq, D); empty for a text-only
+    model."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {}
+    if cfg.vlm is not None:
+        shapes["img_embeds"] = (batch, cfg.vlm.num_image_tokens, cfg.d_model)
+    if cfg.encdec is not None:
+        shapes["enc_embeds"] = (batch, cfg.encdec.enc_seq, cfg.d_model)
+    act = getattr(torch, cfg.activation_dtype)
+    return {k: (0.01 * torch.randn(shape, generator=gen, device=dev)).to(act)
+            for k, shape in shapes.items()}
 
 
 def run_engine(cfg: ModelCfg, params: dict, prompts: list[list[int]], *,
@@ -246,8 +276,9 @@ def main(argv=None) -> None:
         cfg = smoke_config(cfg)
     cfg = cfg.with_(use_flash_kernel=True)    # wrappers pick by device
     dev = resolve_device(args.device)
+    # f32 masters of the MoE and VLM configs do not fit one card
     params = init_weights(cfg, seed=args.seed, device=dev,
-                          compute_dtype=cfg.moe is not None)
+                          compute_dtype=cfg.moe is not None or cfg.vlm is not None)
     model_kw = dict(slots=args.slots, max_seq=args.max_seq,
                     temperature=args.temperature, kv_sketch_rank=args.kv_rank,
                     kv_compress_ratio=args.kv_compress_ratio)

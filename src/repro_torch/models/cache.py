@@ -125,15 +125,22 @@ def reset_slot_state(cache: dict, slot: int) -> None:
                     (leaf[:, slot] if group == "scan" else leaf[slot]).zero_()
 
 
-def grow_cache(cache: dict, extra: int) -> dict:
-    """A copy of ``cache`` with the seq axis of every KV-ish leaf padded by
-    ``extra`` empty rows (write-then-attend decode needs write_pos <
-    capacity).  Other leaves (the recurrent state) are copied unchanged, so
-    a decode on the copy, which writes its state in place, leaves
-    ``cache`` as it was."""
-    def pad(name, leaf):
+def grow_cache(cache: dict, extra: int, cfg: ModelCfg) -> dict:
+    """A copy of ``cache`` (of ``cfg``) with the seq axis of every KV-ish
+    leaf padded by ``extra`` empty rows (write-then-attend decode needs
+    write_pos < capacity).  Other leaves (the recurrent state, the
+    cross-attention ``xk``/``xv``) are copied unchanged, so a decode on the
+    copy, which writes its state in place, leaves ``cache`` as it was.
+
+    A windowed layer's k/v that already hold ``window`` rows (the ring
+    ``make_prefill_step`` leaves past the window, in ring order) are copied
+    unpadded, so a decode at any ``write_pos`` takes the ring branch; the
+    reference pads them too, and its decode then overruns them."""
+    def pad(name, leaf, window):
         if name in ("k", "v"):
             axis = leaf.ndim - 3
+            if window is not None and leaf.shape[axis] >= window:
+                return leaf.clone()
         elif name in ("ckv", "kr"):
             axis = leaf.ndim - 2
         else:
@@ -141,13 +148,15 @@ def grow_cache(cache: dict, extra: int) -> dict:
         widths = [0, 0] * (leaf.ndim - 1 - axis) + [0, extra]
         return F.pad(leaf, widths)
 
-    def tree(layers):
-        return tuple({k: pad(k, v) for k, v in layer.items()}
-                     for layer in layers)
+    def tree(layers, specs):
+        return tuple({k: pad(k, v, spec.window) for k, v in layer.items()}
+                     for layer, spec in zip(layers, specs))
 
-    return {"pre": tree(cache["pre"]),
-            "scan": tree(cache["scan"]) if cache["scan"] is not None else None,
-            "rem": tree(cache["rem"])}
+    rem = [cfg.pattern[j % cfg.period] for j in range(cfg.n_remainder)]
+    return {"pre": tree(cache["pre"], cfg.prelude),
+            "scan": (tree(cache["scan"], cfg.pattern)
+                     if cache["scan"] is not None else None),
+            "rem": tree(cache["rem"], rem)}
 
 
 def cache_bytes(cfg: ModelCfg, batch: int, seq: int) -> int:

@@ -7,8 +7,9 @@ statistics and accumulators are f32.  ``factored_decode_attention`` is the
 plain oracle of the factored-decode kernel (``kernels/factored_decode.py``).
 
 The reference's ``sharding.activation.constrain`` calls are no-ops on one
-card and are dropped.  Cross-attention (whisper) and the sinusoidal
-positions are not ported: no served configuration of the port uses them.
+card and are dropped.  Whisper's decoder cross-attention
+(``cross_attn_block`` over ``encode_cross_kv``'s encoder K/V) and the
+sinusoidal positions of its encoder and decoder are the reference's.
 """
 
 from __future__ import annotations
@@ -86,6 +87,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     else:              # (B, S, half)
         c, s = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(seq, device=device), dim)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal encodings (S, dim) f32 at absolute positions (S,): angle
+    ``pos / 10000^(2i/dim)``, then ``[sin, cos]``."""
+    pos = positions.float()[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=positions.device),
+                          2 * i / dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +239,24 @@ def qkv_project(cfg, p, prefix, x):
         q = rmsnorm(q, p[f"{prefix}/q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p[f"{prefix}/k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def cross_attn_block(cfg, p, x, enc_kv: KVCache):
+    """Decoder cross-attention over precomputed encoder K/V (whisper):
+    non-causal, through the plain blockwise ``attention``."""
+    dt = x.dtype
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q = _proj_heads(x, p["xattn/wq"])
+    out = attention(q, enc_kv.k.to(dt), enc_kv.v.to(dt), causal=False,
+                    window=None, scale=scale, chunk=cfg.attn_chunk)
+    b, sq = out.shape[:2]
+    return out.reshape(b, sq, -1) @ p["xattn/wo"].to(dt)
+
+
+def encode_cross_kv(cfg, p, enc_out) -> KVCache:
+    """The encoder output's K/V for one decoder layer's cross-attention."""
+    return KVCache(_proj_heads(enc_out, p["xattn/wk"]),
+                   _proj_heads(enc_out, p["xattn/wv"]))
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,10 @@ def make_train_step(cfg: ModelCfg, optimizer="adamw", lr: float = 3e-4,
     ``optimizer`` is a name of ``optim.optimizers.get`` (the reference's
     ``adamw | adafactor | sgd``) or an ``Optimizer`` (``optim.galore``'s,
     or one that compresses the gradients first).  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S), tensors or numpy arrays; they go to
-    the params' device.  Autograd takes the place of ``jax.value_and_grad``:
+    ``tokens`` and ``labels`` (B, S), tensors or numpy arrays, and a VLM's
+    ``img_embeds`` or an enc-dec's ``enc_embeds`` (B, N, D); they go to the
+    params' device, the ids as integers, the embeddings in the activation
+    dtype.  Autograd takes the place of ``jax.value_and_grad``:
     the f32 masters are cast for compute once a step, and
     ``micro_batches > 1`` splits the batch, runs one backward a microbatch
     (one microbatch of activations alive at a time), sums the cast
@@ -52,10 +54,14 @@ def make_train_step(cfg: ModelCfg, optimizer="adamw", lr: float = 3e-4,
                          "training default)")
     tx = opt_mod.get(optimizer, lr) if isinstance(optimizer, str) else optimizer
 
+    act = getattr(torch, cfg.activation_dtype)
+
     def step(params, opt_state, batch):
         dev = next(iter(params.values())).device
-        batch = {k: torch.as_tensor(batch[k]).to(dev, torch.long)
-                 for k in ("tokens", "labels")}
+        batch = {k: torch.as_tensor(v).to(dev, torch.long if k in ("tokens", "labels")
+                                          else act)
+                 for k, v in batch.items()
+                 if k in ("tokens", "labels", "img_embeds", "enc_embeds")}
         b = batch["tokens"].shape[0]
         if b % micro_batches:
             raise ValueError(f"batch {b} does not split into {micro_batches} "
@@ -100,7 +106,8 @@ def _final_logits(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ModelCfg) -> Callable:
-    """(params, batch{tokens}) -> (last_logits (B, V) f32, cache).
+    """(params, batch{tokens[, img_embeds][, enc_embeds]}) -> (last_logits
+    (B, V) f32, cache).
 
     Logits are computed at the last position only (``forward(last_only=
     True)``): the step returns no other, and the full (B, S, V) logits at
@@ -108,8 +115,10 @@ def make_prefill_step(cfg: ModelCfg) -> Callable:
 
     def step(params, batch):
         p = T.cast_params_for_compute(cfg, params)
-        out = T.forward(cfg, p, batch["tokens"], return_cache=True,
-                        last_only=True)
+        out = T.forward(cfg, p, batch["tokens"],
+                        img_embeds=batch.get("img_embeds"),
+                        enc_embeds=batch.get("enc_embeds"),
+                        return_cache=True, last_only=True)
         return _final_logits(cfg, out.logits[:, -1]), out.cache
 
     return step

@@ -10,6 +10,9 @@ conversion and the tests compare like with like:
     have a leading ``n_scan_periods`` dim.  A Python loop over the periods
     takes the place of ``lax.scan`` and indexes each leaf (a view).
   * ``rem{j}/...`` — the n_layers % period remainder layers.
+  * ``enc/layers/p0/...``, ``enc/final_norm/...`` — whisper's encoder
+    stack (leading ``enc_layers`` dim); ``vlm/proj`` — the VLM's image
+    projection.
   * ``embed/tokens``, ``final_norm/...``, ``unembed`` (absent when tied).
 
 Caches mirror this: {"pre": (...), "scan": (c_p0, ...), "rem": (...)} with
@@ -20,8 +23,11 @@ the reference returns an updated copy.
 Served and trained here: ``mixer="attn"``, ``mixer="mla"`` (DeepSeek's
 latent attention, ``models/mla.py``) and the recurrent mixers ``rglru``,
 ``mlstm`` and ``slstm`` (``models/recurrent.py``) with ``ffn="mlp"``, the
-routed experts ``ffn="moe"`` (``models/moe.py``) or none, full-context or
-windowed prefill, full-context decode with or without the factored
+routed experts ``ffn="moe"`` (``models/moe.py``) or none, whisper's
+encoder and decoder cross-attention (``encoder_forward``, the cache's
+``xk``/``xv``), the VLM's projected image rows put before the text,
+full-context or windowed prefill (a windowed layer's cache left in ring
+order), full-context decode with or without the factored
 prefix, windowed decode and chunked prefill over a ring-buffer cache,
 absorbed latent decode and chunked prefill into a latent cache, recurrent
 state carried through a cache (written back in place), and
@@ -49,12 +55,13 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 
 _NOT_PORTED = {
-    "cross_attn": "enc-dec cross-attention (ROADMAP Queue 1 item 16f)",
-    "encdec": "the enc-dec encoder (ROADMAP Queue 1 item 16f)",
-    "vlm": "the VLM frontend (ROADMAP Queue 1 item 16f)",
     "vocab_parallel": "the vocab-parallel loss across processes (ROADMAP "
                       "Queue 1 item 16g)",
 }
+
+
+# whisper's encoder layers: dense attention and MLP, no cross-attention
+ENC_SPEC = LayerSpec(mixer="attn", ffn="mlp")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -83,8 +90,6 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
                        cfg.d_ff)
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * cfg.n_layers)
-    if spec.cross_attn:
-        raise not_ported("cross_attn")
     defs: dict[str, ParamDef] = {}
     defs.update(_norm_defs(cfg, "norm1"))
     if not cfg.parallel_block and spec.ffn != "none":
@@ -142,6 +147,12 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
             defs["attn/k_norm"] = ParamDef((hd,), 0.0)
     else:
         raise ValueError(spec.mixer)
+    if spec.cross_attn:
+        defs["xattn/wq"] = ParamDef((D, H, hd), s_in)
+        defs["xattn/wk"] = ParamDef((D, KV, hd), s_in)
+        defs["xattn/wv"] = ParamDef((D, KV, hd), s_in)
+        defs["xattn/wo"] = ParamDef((H * hd, D), s_out)
+        defs.update(_norm_defs(cfg, "norm_x"))
     if spec.ffn == "mlp":
         defs["mlp/w_gate"] = ParamDef((D, F), s_in)
         defs["mlp/w_up"] = ParamDef((D, F), s_in)
@@ -164,15 +175,13 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
 def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
     """Full parameter schema: path -> ParamDef (the reference's names,
     shapes and init scales)."""
-    if cfg.vlm:
-        raise not_ported("vlm")
-    if cfg.encdec:
-        raise not_ported("encdec")
     defs: dict[str, ParamDef] = {}
     defs["embed/tokens"] = ParamDef((cfg.vocab, cfg.d_model), 1.0)
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab), 0.02)
     defs.update(_norm_defs(cfg, "final_norm"))
+    if cfg.vlm:
+        defs["vlm/proj"] = ParamDef((cfg.d_model, cfg.d_model), 0.02)
     for j, spec in enumerate(cfg.prelude):
         for k, d in _layer_defs(cfg, spec).items():
             defs[f"pre{j}/{k}"] = d
@@ -184,6 +193,12 @@ def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
     for j in range(cfg.n_remainder):
         for k, d in _layer_defs(cfg, cfg.pattern[j % cfg.period]).items():
             defs[f"rem{j}/{k}"] = d
+    if cfg.encdec:                   # whisper's encoder: dense layers, stacked
+        for k, d in _layer_defs(cfg, ENC_SPEC).items():
+            defs[f"enc/layers/p0/{k}"] = ParamDef(
+                (cfg.encdec.enc_layers,) + d.shape, d.scale)
+        defs.update({f"enc/{k}": d
+                     for k, d in _norm_defs(cfg, "final_norm").items()})
     return defs
 
 
@@ -221,7 +236,8 @@ def init_params(cfg: ModelCfg, gen: torch.Generator, *,
         elif (compute_dtype and dtype == torch.float32
               and not keeps_f32(name, len(d.shape))):
             w = torch.empty(d.shape, dtype=act, device=dev)
-            for part in (w if name.startswith("layers/") else w[None]):
+            stacked = name.startswith(("layers/", "enc/layers/"))
+            for part in (w if stacked else w[None]):
                 part.copy_(torch.randn(part.shape, generator=gen,
                                        dtype=torch.float32,
                                        device=dev).mul_(d.scale))
@@ -282,14 +298,16 @@ def _act_dtype(cfg):
 
 def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
                 positions, rope, cache, write_pos, return_cache: bool,
-                causal: bool = True, factors=None, comp_len=None):
+                causal: bool = True, factors=None, comp_len=None,
+                enc_out=None):
     """Residual block: norm -> attention, MLA or a recurrent mixer -> (+)
-    [norm -> mlp/moe -> (+)].  ``rope`` is the (cos, sin) of ``positions``
-    at the mixer's rotary width (None without RoPE).  Returns (x,
-    new_cache_dict_or_None); a recurrent mixer given a cache writes its new
-    state into it and returns it."""
-    if spec.cross_attn:
-        raise not_ported("cross_attn")
+    [norm -> cross-attention -> (+)] [norm -> mlp/moe -> (+)].  ``rope`` is
+    the (cos, sin) of ``positions`` at the mixer's rotary width (None
+    without RoPE).  A cross-attention layer attends the cache's ``xk``/
+    ``xv`` where it holds them, else the K/V of ``enc_out`` (returned in
+    the new cache when asked).  Returns (x, new_cache_dict_or_None); a
+    recurrent mixer given a cache writes its new state into it and returns
+    it."""
     h = L.apply_norm(cfg, p, "norm1", x)
     if spec.mixer in _RECURRENT:
         mix, new_cache = _RECURRENT[spec.mixer](
@@ -315,6 +333,18 @@ def apply_layer(cfg: ModelCfg, spec: LayerSpec, p: dict, x: torch.Tensor, *,
     if cfg.parallel_block and spec.ffn != "none":
         return x + (_ffn(cfg, spec, p, h) + mix), new_cache
     x = x + mix
+    if spec.cross_attn:
+        hx = L.apply_norm(cfg, p, "norm_x", x)
+        if cache is not None and "xk" in cache:
+            enc_kv = L.KVCache(cache["xk"], cache["xv"])
+        elif enc_out is None:
+            raise ValueError("a cross-attention layer needs enc_out or a "
+                             "cache holding xk/xv")
+        else:
+            enc_kv = L.encode_cross_kv(cfg, p, enc_out)
+        if new_cache is not None:
+            new_cache = {**new_cache, "xk": enc_kv.k, "xv": enc_kv.v}
+        x = x + L.cross_attn_block(cfg, p, hx, enc_kv)
     if spec.ffn != "none":
         ff = _ffn(cfg, spec, p, L.apply_norm(cfg, p, "norm2", x))
         if cfg.post_norms:
@@ -360,8 +390,13 @@ def _attn_with_cache(cfg, spec, p, h, *, positions, rope, cache, write_pos,
                               chunk=cfg.attn_chunk)
         kv = None
         if return_cache:
-            if spec.window is not None and spec.window < k.shape[1]:
-                kv = L.KVCache(k[:, -spec.window:], v[:, -spec.window:])
+            s = k.shape[1]
+            if spec.window is not None and spec.window < s:
+                # the last window rows in ring order (slot p % window holds
+                # position p), the ring a decode at write_pos s continues
+                w = spec.window
+                kv = L.KVCache(torch.roll(k[:, -w:], s % w, 1),
+                               torch.roll(v[:, -w:], s % w, 1))
             else:
                 kv = L.KVCache(k, v)
     elif (spec.window is not None and cache.k.shape[1] <= spec.window
@@ -464,10 +499,11 @@ def _ring_attend(cfg, q, k, v, cache, positions, write_pos: int, *, scale,
 
 def apply_stack(cfg: ModelCfg, params: dict, x: torch.Tensor, *, positions,
                 ropes, cache, write_pos, return_cache: bool, causal: bool = True,
-                kv_factors=None, comp_len=None):
+                kv_factors=None, comp_len=None, enc_out=None):
     """Prelude layers, the repeated pattern group (a loop over periods on
     views of the stacked leaves) and the remainder layers.  ``ropes`` maps
-    a mixer to its RoPE tables (``rope_tables``)."""
+    a mixer to its RoPE tables (``rope_tables``); ``enc_out`` is the
+    encoder output the cross-attention layers attend (whisper)."""
     has_cache = cache is not None
     has_f = kv_factors is not None
     collect = return_cache and not has_cache
@@ -477,7 +513,8 @@ def apply_stack(cfg: ModelCfg, params: dict, x: torch.Tensor, *, positions,
                            rope=ropes.get(spec.mixer),
                            cache=c,
                            write_pos=write_pos, return_cache=return_cache,
-                           causal=causal, factors=f, comp_len=comp_len)
+                           causal=causal, factors=f, comp_len=comp_len,
+                           enc_out=enc_out)
 
     new_pre = []
     for j, spec in enumerate(cfg.prelude):
@@ -551,23 +588,50 @@ def embed_tokens(cfg, params, tokens):
     return x
 
 
+def encoder_forward(cfg: ModelCfg, params: dict,
+                    enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: the stub frontend's frame embeddings (B, S_enc, D)
+    plus sinusoidal positions, then the bidirectional stack of
+    ``enc_layers`` dense layers (no RoPE; non-causal, so the plain
+    attention) and ``enc/final_norm``."""
+    dt = _act_dtype(cfg)
+    x = enc_embeds.to(dt)
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   device=x.device).to(dt)[None]
+    enc_cfg = cfg.with_(use_rope=False)
+    positions = torch.arange(x.shape[1], device=x.device)
+    stack = sub(params, "enc/layers/p0/")
+    for t in range(cfg.encdec.enc_layers):
+        x, _ = apply_layer(enc_cfg, ENC_SPEC, {k: w[t] for k, w in stack.items()},
+                           x, positions=positions, rope=None, cache=None,
+                           write_pos=0, return_cache=False, causal=False)
+    return L.apply_norm(cfg, sub(params, "enc/"), "final_norm", x)
+
+
 def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, write_pos: int = 0,
+            img_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
             return_cache: bool = False, kv_factors: Optional[dict] = None,
             comp_len: Optional[torch.Tensor] = None,
             last_only: bool = False) -> ForwardOut:
     """tokens: (B, S).  Decode: S == 1 with a populated cache.
 
-    ``kv_factors``/``comp_len`` (serving only): the per-layer rank-r KV
-    factors of ``cache.build_kv_factors`` plus the per-slot compressed
-    prefix length.  ``last_only`` computes the logits of the last position
-    alone, (B, 1, V): at S = 32768 the full (B, S, V) logits would be 10 GB.
-    Logits stay in the activation dtype, as in the reference."""
-    if cfg.vlm is not None:
-        raise not_ported("vlm")
-    if cfg.encdec is not None:
-        raise not_ported("encdec")
+    ``img_embeds`` (B, N_img, D) (VLM): projected by ``vlm/proj`` and put
+    before the token embeddings; the positions count the image rows.
+    ``enc_embeds`` (B, S_enc, D) (enc-dec): run through
+    ``encoder_forward`` for the cross-attention layers; the decoder adds
+    sinusoidal encodings of its positions.  ``kv_factors``/``comp_len``
+    (serving only): the per-layer rank-r KV factors of
+    ``cache.build_kv_factors`` plus the per-slot compressed prefix length.
+    ``last_only`` computes the logits of the last position alone, (B, 1,
+    V): at S = 32768 the full (B, S, V) logits would be 10 GB.  Logits stay
+    in the activation dtype, as in the reference."""
+    dt = _act_dtype(cfg)
     x = embed_tokens(cfg, params, tokens)
+    if cfg.vlm is not None and img_embeds is not None:
+        img = img_embeds.to(dt) @ params["vlm/proj"].to(dt)
+        x = torch.cat([img, x], dim=1)
     dev = x.device
     # With a cache the tokens sit at write_pos onwards (the reference's
     # single-token decode position; it numbers a multi-token chunk from 0,
@@ -575,11 +639,17 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
     # computed once here, not in every layer.
     start = int(write_pos) if cache is not None else 0
     positions = torch.arange(start, start + x.shape[1], device=dev)
+    enc_out = None
+    if cfg.encdec is not None:
+        if enc_embeds is not None:
+            enc_out = encoder_forward(cfg, params, enc_embeds)
+        x = x + L.sinusoidal_at(positions, cfg.d_model).to(dt)[None]
     x, new_cache = apply_stack(cfg, params, x, positions=positions,
                                ropes=rope_tables(cfg, positions),
                                cache=cache, write_pos=write_pos,
                                return_cache=return_cache,
-                               kv_factors=kv_factors, comp_len=comp_len)
+                               kv_factors=kv_factors, comp_len=comp_len,
+                               enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
     x = L.apply_norm(cfg, params, "final_norm", x)
@@ -617,7 +687,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(cfg: ModelCfg, params: dict, batch: dict) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"},
-    (B, S) integer tensors) under ``params`` (cast for compute by the
-    caller).  VLM and enc-dec configurations raise, as ``forward`` does."""
-    out = forward(cfg, params, batch["tokens"])
-    return cross_entropy(out.logits, batch["labels"], cfg.final_softcap)
+    (B, S) integer tensors, and the optional ``img_embeds`` / ``enc_embeds``
+    of ``forward``) under ``params`` (cast for compute by the caller).  A
+    VLM's image positions, put before the text, carry label -1."""
+    out = forward(cfg, params, batch["tokens"],
+                  img_embeds=batch.get("img_embeds"),
+                  enc_embeds=batch.get("enc_embeds"))
+    labels = batch["labels"]
+    if cfg.vlm is not None:
+        pad = labels.new_full(labels.shape[:1] + (cfg.vlm.num_image_tokens,), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return cross_entropy(out.logits, labels, cfg.final_softcap)

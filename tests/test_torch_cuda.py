@@ -299,6 +299,52 @@ def test_flash_kernel_negative_and_zero_scale(gen, scale):
     assert _row_rel_err(got, want) <= ROW_REL[q.dtype]
 
 
+@pytest.mark.parametrize("s", [448, 4096, 4097])
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_every_group_bf16(gen, s, g, hd, causal):
+    """Every group size from 1 to 8 over two kv heads: a block holds bq =
+    16 * (8 // G) positions of each of its G heads, so at G = 3, 5, 6, 7
+    its last 128 - G * bq rows are dead, and must read no head of the next
+    group and write nothing.  S = 448 is whisper's text context, 4096
+    llava's prefill (576 image rows + 3520 tokens), 4097 a ragged edge."""
+    q, k, v = _qkv(gen, 1, s, 2 * g, 2, hd, torch.bfloat16)
+    before = k3.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert k3.launches == before + 1
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+    assert _row_rel_err(got, want) <= ROW_REL[q.dtype]
+
+
+@pytest.mark.parametrize("s", [65, 448])
+@pytest.mark.parametrize("g", [3, 5, 7])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_odd_groups_f32(gen, s, g, hd, causal):
+    """The groups that leave dead rows, in f32 (the hi/lo split products):
+    f32 accuracy."""
+    q, k, v = _qkv(gen, 2, s, 2 * g, 2, hd, torch.float32)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = k3.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert _row_rel_err(got, want) <= ROW_REL[q.dtype]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd", [(1, 4096, 56, 8, 128),
+                                          (8, 448, 20, 20, 64)], ids=str)
+def test_flash_kernel_llava_and_whisper_prefill_shapes(gen, b, s, h, kvh, hd):
+    """The two prefills of the enc-dec and VLM slice: llava-next-34b's (1,
+    576 + 3520, 56|8, 128), G 7, and whisper-large-v3's decoder (8, 448,
+    20|20, 64), G 1, bf16 causal."""
+    q, k, v = _qkv(gen, b, s, h, kvh, hd, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = k3.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+    assert _row_rel_err(got, want) <= ROW_REL[q.dtype]
+
+
 def _fdec_inputs(gen, b=2, s=32, h=4, kvh=2, hd=16, r=5, comp=(12, 0), wp=20,
                  dtype=torch.float32, garbage_past_wp=False):
     """Factored-decode state honoring the cache contract: us rows >=
@@ -377,6 +423,23 @@ def test_fdec_kernel_engine_shape_bf16(gen):
                         comp=comp, wp=200, dtype=torch.bfloat16,
                         garbage_past_wp=True)
     got, want = _fdec_both(args, 200, block_kv=256, hd=128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("wp", [190, 2047])
+def test_fdec_kernel_llava_engine_shape_groups_7(gen, wp):
+    """llava-next-34b's engine: 4 slots x 2048 rows x 8 kv heads x 128, G
+    = 56 / 8 = 7, r = 32, bf16 cache, comp_len mixed, at the planner's
+    split (its shared memory grows with G)."""
+    comp = {190: (128, 0, 191, 64), 2047: (1984, 0, 2048, 1)}[wp]
+    args = _fdec_inputs(gen, b=4, s=2048, h=56, kvh=8, hd=128, r=32,
+                        comp=comp, wp=wp, dtype=torch.bfloat16,
+                        garbage_past_wp=True)
+    assert k4.decode_plan(4, 8, 2048, 128, 32, 7).smem <= k4.SMEM_LIMIT
+    before = k4.launches
+    got = k4.factored_decode_attention(*args, wp, scale=128 ** -0.5)
+    assert k4.launches == before + 1
+    want = k4.factored_decode_plain(*args, wp, scale=128 ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
 
 
@@ -1030,7 +1093,7 @@ def test_deepseek_prefill_and_decode_on_card_match_cpu(gen):
         p = {k: v.to(dev) for k, v in params.items()}
         pre, cache = R.make_prefill_step(cfg)(p, {"tokens": tok[:, :12].to(dev)})
         dec, _ = R.make_serve_step(cfg)(p, {"tokens": tok[:, 12:].to(dev),
-                                            "cache": C.grow_cache(cache, 1),
+                                            "cache": C.grow_cache(cache, 1, cfg),
                                             "write_pos": 12})
         out[dev] = (pre.cpu(), dec.cpu())
     assert k3.launches == before
@@ -1096,3 +1159,31 @@ def test_recurrent_masked_step_on_card_keeps_other_slots(gen, arch):
     assert not all(torch.equal(a, b) for a, b in zip(rows(0), before[0]))
     m.begin_slot(1)
     assert all(not r.any() for r in rows(1))
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-34b"])
+def test_encdec_vlm_prefill_and_decode_on_card_match_cpu(gen, arch):
+    """make_prefill_step with the stub frontends' embeddings (whisper's
+    encoder over frame embeddings, llava's projected image rows; kernel 3
+    on the card's decoder layers, its plain version on the CPU), then one
+    decode step on the grown cache: f32, card against CPU at 1e-4."""
+    from repro_torch.models import cache as C
+    cfg = smoke_config(R.get_arch(arch)).with_(activation_dtype="float32",
+                                               use_flash_kernel=True)
+    params = launch.init_weights(cfg, seed=0, device="cpu")
+    extra = launch.stub_embeds(cfg, 2, device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 13), generator=torch.Generator().manual_seed(3))
+    n_img = cfg.vlm.num_image_tokens if cfg.vlm else 0
+    out = {}
+    before = k3.launches
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        pre, cache = launch.run_prefill(cfg, p, tok[:, :12].to(dev),
+                                        **{k: v.to(dev) for k, v in extra.items()})
+        dec, _ = R.make_serve_step(cfg)(p, {"tokens": tok[:, 12:].to(dev),
+                                            "cache": C.grow_cache(cache, 1, cfg),
+                                            "write_pos": 12 + n_img})
+        out[dev] = (pre.cpu(), dec.cpu())
+    assert k3.launches == before + cfg.n_layers
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -319,7 +319,7 @@ def test_prefill_then_decode_matches_full_forward(deepseek):
                 np.testing.assert_allclose(_f32(layer[name]), _f32(ref_layer[name]),
                                            **F32_LOGITS)
     got, _ = R.make_serve_step(cfg)(params, {
-        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1, cfg),
         "write_pos": s})
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0.15, atol=0.15)
     assert np.corrcoef(got.numpy().ravel(), full.numpy().ravel())[0, 1] > 0.99
@@ -336,7 +336,7 @@ def test_grow_cache_pads_latent_rows():
     for layer in (cache["pre"][0], cache["scan"][0]):
         for leaf in layer.values():
             leaf.fill_(1)
-    grown = C.grow_cache(cache, 3)
+    grown = C.grow_cache(cache, 3, cfg)
     for layer in (grown["pre"][0], grown["scan"][0]):
         for name, leaf in layer.items():
             assert leaf.shape[-2] == 11, name

@@ -132,7 +132,7 @@ def test_prefill_then_decode_matches_full_forward(qwen, flash):
     tok = torch.as_tensor(_tokens((b, s + 1), cfg.vocab, seed=3)).long()
     want = R._final_logits(cfg, T.forward(cfg, params, tok).logits[:, -1])
     _, cache = R.make_prefill_step(cfg)(params, {"tokens": tok[:, :s]})
-    cache = C.grow_cache(cache, 1)
+    cache = C.grow_cache(cache, 1, cfg)
     got, new_cache = R.make_serve_step(cfg)(params, {
         "tokens": tok[:, s:], "cache": cache, "write_pos": s})
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0.15, atol=0.15)
@@ -191,32 +191,21 @@ def test_grow_cache_pads_kv_rows_only():
     cfg = smoke_config(R.get_arch("qwen3-0.6b"))
     cache = C.build_cache(cfg, 2, 8, device="cpu")
     cache["scan"][0]["k"].fill_(1)
-    grown = C.grow_cache(cache, 3)
+    grown = C.grow_cache(cache, 3, cfg)
     leaf = grown["scan"][0]["k"]
     assert leaf.shape[2] == 11
     assert bool((leaf[:, :, :8] == 1).all()) and bool((leaf[:, :, 8:] == 0).all())
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("whisper-large-v3", "enc-dec"), ("llava-next-34b", "VLM")])
-def test_unported_paths_raise_naming_their_roadmap_item(arch, what):
-    cfg = smoke_config(R.get_arch(arch))
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP Queue 1 item"):
-        T.schema(cfg)
-
-
 def test_training_and_windowed_decode_raise(gemma2):
     """Training is ported (tests/test_torch_train.py); what it does not
-    cover raises: the vocab-parallel loss and the VLM's loss.  Windowed
-    (ring) decode is ported: on a cache of fewer rows than the window (a
-    ring that never wraps) it runs and matches the reference."""
+    cover raises: the vocab-parallel loss.  Windowed (ring) decode is
+    ported: on a cache of fewer rows than the window (a ring that never
+    wraps) it runs and matches the reference."""
     from repro_torch.launch.mesh import HostMesh
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16g"):
         T.cross_entropy(torch.zeros((1, 2, 8)), torch.zeros((1, 2), dtype=torch.long),
                         mesh=HostMesh((1, 2)))
-    with pytest.raises(NotImplementedError, match="VLM.*ROADMAP Queue 1 item 16f"):
-        T.loss_fn(smoke_config(R.get_arch("llava-next-34b")), {},
-                  {"tokens": torch.zeros((1, 2), dtype=torch.long)})
     ref_cfg, cfg, ref_params, params = gemma2
     ref_cache = rcache.build_cache(ref_cfg, 1, 8)
     cache = C.build_cache(cfg, 1, 8, device="cpu")       # window 16 >= 8: ring
@@ -330,6 +319,66 @@ def test_masked_decode_past_window_matches_reference(gemma2):
     _assert_caches_close(port.cache, ref.cache)
 
 
+@pytest.mark.parametrize("s", [40, 48])
+def test_windowed_prefill_cache_carries_decode_past_window(gemma2, s):
+    """A prefill past the window leaves each local layer's last 16 rows in
+    ring order (slot p % 16 holds position p); ``grow_cache(cache, 1, cfg)``
+    pads the global layers and leaves the rings as they are, so one decode
+    at write_pos S takes the ring branch.  Its logits match the port's own
+    full forward over S + 1 at the reference's 0.15 with correlation >
+    0.99 (the reference's own decode there is wrong: it clamps its write).
+    The rings equal the reference's position-order rows once rotated back,
+    within a bf16 ulp."""
+    ref_cfg, cfg, ref_params, params = gemma2
+    tok = _tokens((2, s + 1), cfg.vocab, seed=17)
+    full = R._final_logits(cfg, T.forward(cfg, params,
+                                          torch.as_tensor(tok).long()).logits[:, -1])
+    _, cache = R.make_prefill_step(cfg)(params,
+                                        {"tokens": torch.as_tensor(tok[:, :s]).long()})
+    _, ref_cache = RR.make_prefill_step(ref_cfg)(ref_params,
+                                                 {"tokens": jnp.asarray(tok[:, :s])})
+    for name in ("k", "v"):
+        ring = cache["scan"][0][name]
+        assert ring.shape[2] == 16
+        np.testing.assert_allclose(_f32(torch.roll(ring, -(s % 16), 2)),
+                                   _f32(ref_cache["scan"][0][name]), rtol=1e-2, atol=1e-2)
+    grown = C.grow_cache(cache, 1, cfg)
+    assert grown["scan"][0]["k"].shape[2] == 16 and grown["scan"][1]["k"].shape[2] == s + 1
+    assert torch.equal(grown["scan"][0]["k"], cache["scan"][0]["k"])
+    got, _ = R.make_serve_step(cfg)(params, {"tokens": torch.as_tensor(tok[:, s:]).long(),
+                                             "cache": grown, "write_pos": s})
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0.15, atol=0.15)
+    assert np.corrcoef(got.numpy().ravel(), full.numpy().ravel())[0, 1] > 0.99
+
+
+def test_grow_cache_pads_full_context_and_latent_leaves():
+    """grow_cache pads what it padded before the ring repair: every
+    full-context k/v leaf (qwen3, gemma2's global layers), a windowed leaf
+    shorter than its window (a ring that has not wrapped: gemma2's local
+    layers at 8 rows) and the MLA latents, stacked or not; old rows kept,
+    new rows zero."""
+    for arch, leaves in (("qwen3-0.6b", ("k", "v")), ("gemma2-2b", ("k", "v")),
+                         ("deepseek-v2-lite-16b", ("ckv", "kr"))):
+        cfg = smoke_config(R.get_arch(arch))
+        cache = C.build_cache(cfg, 2, 8, device="cpu")
+        for group in ("pre", "scan"):
+            for layer in cache[group] or ():
+                for name in leaves:
+                    layer[name].fill_(1)
+        grown = C.grow_cache(cache, 3, cfg)
+        n = 0
+        for group in ("pre", "scan"):
+            for layer in grown[group] or ():
+                for name in leaves:
+                    leaf = layer[name]
+                    axis = leaf.ndim - (3 if name in ("k", "v") else 2)
+                    assert leaf.shape[axis] == 11, (arch, group, name)
+                    assert bool((leaf.narrow(axis, 0, 8) == 1).all())
+                    assert bool((leaf.narrow(axis, 8, 3) == 0).all())
+                    n += 1
+        assert n >= 2, arch
+
+
 # -- the dense archs the port serves, in f32 activations ---------------------
 
 DENSE_ARCHS = ["qwen3-0.6b", "gemma2-2b", "codeqwen1.5-7b", "command-r-plus-104b"]
@@ -386,7 +435,7 @@ def test_prefill_then_decode_matches_reference_f32(arch):
         "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
         "write_pos": jnp.asarray(s, jnp.int32)})
     got, _ = R.make_serve_step(cfg)(params, {
-        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1, cfg),
         "write_pos": s})
     np.testing.assert_allclose(got.numpy(), _f32(want), **F32_LOGITS)
 
@@ -458,7 +507,7 @@ def test_moe_prefill_then_decode_matches_full_forward(moe_f32):
     _, cache = R.make_prefill_step(cfg)(params,
                                         {"tokens": torch.as_tensor(tok[:, :s]).long()})
     got, _ = R.make_serve_step(cfg)(params, {
-        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1),
+        "tokens": torch.as_tensor(tok[:, s:]).long(), "cache": C.grow_cache(cache, 1, cfg),
         "write_pos": s})
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=0.15, atol=0.15)
     assert np.corrcoef(got.numpy().ravel(), full.numpy().ravel())[0, 1] > 0.99
@@ -579,7 +628,7 @@ def test_recurrent_prefill_then_decode_matches_reference(arch, act):
             assert layer[name].dtype == getattr(torch, str(ref_layer[name].dtype))
             np.testing.assert_allclose(_f32(layer[name]), _f32(ref_layer[name]),
                                        **(tol if name not in ("k", "v") else TOL))
-    grown = C.grow_cache(cache, 1)
+    grown = C.grow_cache(cache, 1, cfg)
     want, _ = RR.make_serve_step(ref_cfg)(ref_params, {
         "tokens": jnp.asarray(tok[:, s:]), "cache": rcache.grow_cache(ref_cache, 1),
         "write_pos": jnp.asarray(s, jnp.int32)})
@@ -655,7 +704,7 @@ def test_grow_cache_copies_recurrent_state():
     cfg = smoke_config(R.get_arch("recurrentgemma-2b"))
     cache = C.build_cache(cfg, 2, 8, device="cpu")
     cache["scan"][0]["h"].fill_(3)
-    grown = C.grow_cache(cache, 2)
+    grown = C.grow_cache(cache, 2, cfg)
     assert grown["scan"][2]["k"].shape[2] == 10
     assert torch.equal(grown["scan"][0]["h"], cache["scan"][0]["h"])
     assert grown["rem"][0]["conv"].shape == cache["rem"][0]["conv"].shape
