@@ -216,6 +216,22 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    (17c) kernel 3 alone at (1, 4096, 56|8, 128) and (8, 448, 20|20, 64)
    against its plain version, by CUDA events and a CUDA-graph replay,
    beside SDPA and its bound; the phase within 200 s.
+18. training and serving across processes, in gloo worlds of local
+   processes on the one card (``launch.world.run_world``; no scaling
+   claimed): (18a) qwen3-0.6b at full width and depth, f32 masters drawn as
+   each rank's slices, AdamW, seq 1024 x global batch 8, in a (data 2 x
+   model 2) world against one process on the same batches and weights:
+   the step-1 loss (rtol 2e-5) and every gathered gradient (max-norm
+   relative 2e-2), the losses of steps 2-3, each rank's state bytes, step
+   ms and bytes handed to collectives; a collective checkpoint at step 2
+   restored bit for bit in one process and in a (1 x 2) world; ``remesh``
+   onto ranks 0-1 and back bit for bit; ``launch.train.main`` with
+   ``--model-parallel 2`` in the world; (18b) qwen3-moe-30b-a3b at full
+   width and depth in a (data 1 x model 2) world (64 experts and half the
+   vocab a rank, kernel 3 on): each rank's weights checksummed against its
+   block of phase 14's, 48 launches a rank, the prefill's logits against
+   14a's kernel-path logits at the bf16 gate, routed sets alike, peak
+   memory, prefill and all-reduce ms; the phase within 300 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -3152,6 +3168,8 @@ def _phase14(torch, dev, card) -> dict:
     out["14a"] = {"launches": launches, "ms_kernel": t_k * 1e3, "ms_plain": t_p * 1e3,
                   "peak_gib": peak, "err": (logits_k - logits_p).abs().max().item()}
     sub["14a"] = time.perf_counter() - t_sub
+    # what phase 18b holds its world to, kept on the host
+    out["world_ref"] = moe_world_reference(torch, cfg, kcfg, weights, prompt)
 
     # -- 14b: grow_cache + one decode step vs a full forward over S + 1 ----
     t_sub = time.perf_counter()
@@ -4843,6 +4861,573 @@ def _phase17(torch, dev, card) -> dict:
     return out
 
 
+# Phase 18: training and serving across processes (sharding/, the mesh
+# branches of models/, optim/, train/ and launch/train.py), in gloo worlds
+# of local processes on the one card (no scaling is claimed: the ranks share
+# the card and talk through the host).  18a trains qwen3-0.6b at full width
+# and depth on a (data 2 x model 2) mesh at phase 12's cut; 18b serves
+# qwen3-moe-30b-a3b at full width and depth on (data 1 x model 2): 64
+# experts a rank, the vocab tables split, the attention replicated, kernel
+# 3 on.
+SHARD_TRAIN_WORLD = (2, 2)        # 18a: data x model ranks
+SHARD_SERVE_WORLD = (1, 2)        # 18b
+SHARD_STEPS = 3                   # 18a: world steps, each beside one process's
+SHARD_MICRO = 4                   # 18a: four ranks' activations share the card
+SHARD_SAVE_AT = 2                 # 18a: the world's checkpoint
+LAUNCH_STEPS, LAUNCH_SEQ, LAUNCH_BATCH = 2, 256, 8   # 18a's launcher run,
+LAUNCH_LR = 3e-4                                     # at the launcher's lr
+SHARD_LAUNCH = ("--arch", ARCH, "--steps", str(LAUNCH_STEPS), "--seq",
+                str(LAUNCH_SEQ), "--global-batch", str(LAUNCH_BATCH),
+                "--lr", str(LAUNCH_LR), "--model-parallel", "2",
+                "--ckpt-every", str(LAUNCH_STEPS))
+# two AdamW runs whose gradients round apart move an element apart by at
+# most 2 lr |m^|/sqrt(v^) a step, <= 1.0004 at steps 1-2 with betas (0.9,
+# 0.95); weight decay adds 0.1 lr of the gap
+LAUNCH_DRIFT = LAUNCH_STEPS * 2 * LAUNCH_LR * 1.001
+SHARD_TIMEOUT = 420.0             # a deadlocked collective fails the phase
+SHARD_GRAD_REL = 2e-2             # max-norm relative, tests/test_vocab_parallel.py
+SHARD_LOSS_RTOL = 2e-5
+PHASE18_LIMIT_S = 300.0
+
+
+def leaf_digest(t) -> str:
+    """A digest of a tensor's bytes (bit for bit comparisons across
+    processes)."""
+    import hashlib
+
+    import torch
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.blake2b(t.numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def leaf_checksum(torch, w) -> int:
+    """The exact integer sum of a tensor's bit patterns (any order gives the
+    same), a leading slice at a time."""
+    ints = {2: torch.int16, 4: torch.int32}[w.element_size()]
+    total = 0
+    for part in (w if w.dim() >= 3 else w[None]):
+        total += int(part.contiguous().view(ints).to(torch.int64).sum())
+    return total
+
+
+def model_block(w, spec, m: int, n: int):
+    """Model rank m's block of a whole leaf under a spec whose only split
+    axis of more than one rank is ``model`` (of ``n``)."""
+    for dim, entry in enumerate(spec):
+        if entry == "model":
+            k = w.shape[dim] // n
+            w = w.narrow(dim, m * k, k)
+    return w
+
+
+def moe_world_reference(torch, cfg, kcfg, weights, prompt) -> dict:
+    """What 18b holds its world to, kept on the host after 14a: the
+    kernel-path last-position logits of the (1, 4096) prompt, its routed
+    expert sets and the checksum of each model rank's block of every
+    leaf (phase 14's one-process weights)."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+    specs = rules.param_specs(cfg, HostMesh(SHARD_SERVE_WORLD), serving=True)
+    n = SHARD_SERVE_WORLD[1]
+    sums = [{k: leaf_checksum(torch, model_block(w, specs[k], m, n))
+             for k, w in weights.items()} for m in range(n)]
+    routes, route = [], moe.route
+
+    def recording(c, logits):
+        gates, experts = route(c, logits)
+        routes.append(torch.sort(experts, dim=-1).values.to(torch.uint8))
+        return gates, experts
+
+    kept = k3.launches
+    moe.route = recording
+    try:
+        logits, _ = launch.run_prefill(kcfg, weights, prompt)
+    finally:
+        moe.route = route
+        k3.launches = kept
+    return {"logits": logits.float().cpu(), "routes": torch.stack(routes).cpu(),
+            "sums": sums, "prompt": prompt.cpu()}
+
+
+def launcher_one_process(torch, cfg, dev):
+    """What 18a's launcher run is held to: one process trains the
+    launcher's weights (seed 0) with its optimizer on the rows the world's
+    data ranks read (``SyntheticLM`` with their ``host_id``), put together
+    in data order.  The losses, and the params on the host."""
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry as R
+    n_data = SHARD_TRAIN_WORLD[0]
+    params = launch.init_weights(cfg, seed=0, device=dev)
+    step = R.make_train_step(cfg, optimizer="adamw", lr=LAUNCH_LR)
+    opt = step.init_opt(params)
+    losses = []
+    for i in range(LAUNCH_STEPS):
+        parts = [SyntheticLM(vocab=cfg.vocab, seq_len=LAUNCH_SEQ,
+                             global_batch=LAUNCH_BATCH, seed=0, host_id=h,
+                             num_hosts=n_data).batch(i) for h in range(n_data)]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+    return losses, {k: v.cpu() for k, v in params.items()}
+
+
+class CollectiveBytes:
+    """Counts the bytes of the tensors this rank hands to all_reduce,
+    all_gather and broadcast (its inputs), by wrapping them."""
+
+    def __init__(self, dist):
+        self.dist, self.n = dist, 0
+        self.saved = {k: getattr(dist, k) for k in ("all_reduce", "all_gather",
+                                                    "broadcast")}
+        for name, fn in self.saved.items():
+            setattr(dist, name, self._wrap(fn, name))
+
+    def _wrap(self, fn, name):
+        def call(*a, **kw):
+            t = a[1] if name == "all_gather" else a[0]
+            self.n += t.numel() * t.element_size()
+            return fn(*a, **kw)
+        return call
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def phase18_train_rank(rank, world, dev, *, sizes, batches, ckpt, launch_dir,
+                       one_grads):
+    """One rank of 18a: qwen3-0.6b's masters drawn as this rank's slices,
+    AdamW steps on the global batches, the step-1 gradients against their
+    blocks of the one-process gradients in ``one_grads`` (a file, read
+    memory-mapped), a collective checkpoint at step SHARD_SAVE_AT with the
+    digests of the gathered params, remesh onto ranks 0-1 and back, then
+    launch.train.main inside the world."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import registry as R
+    from repro_torch.optim import optimizers as O
+    from repro_torch.sharding import activation as A
+    from repro_torch.sharding import rules
+    from repro_torch.train import loop
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = R.get_arch(ARCH)
+    mesh = HostMesh(sizes).bind()
+    specs = rules.param_specs(cfg, mesh)
+    A.set_mesh(mesh)
+    A.set_param_specs(specs)
+    out = {"index": (mesh.index("data"), mesh.index("model"))}
+    t0 = time.perf_counter()
+    params = launch.init_weights(cfg, seed=0, device=dev, mesh=mesh, specs=specs)
+    torch.cuda.synchronize()
+    out["draw_s"] = time.perf_counter() - t0
+    adam = O.adamw(TRAIN_LR)
+    captured = {}
+
+    def update(grads, state, p):
+        captured.setdefault("grads", grads)
+        return adam.update(grads, state, p)
+
+    step = R.make_train_step(cfg, O.Optimizer(adam.init, update),
+                             micro_batches=SHARD_MICRO)
+    opt = step.init_opt(params)
+    out["state_bytes"] = tree_bytes((params, opt["m"], opt["v"]))
+    counter = CollectiveBytes(dist)
+    losses, step_ms, sent = [], [], []
+    try:
+        for i, b in enumerate(batches):
+            dist.barrier()
+            torch.cuda.synchronize()
+            n0, t0 = counter.n, time.perf_counter()
+            params, opt, met = step(params, opt, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            sent.append(counter.n - n0)
+            losses.append(float(met["loss"]))
+            if i == 0:
+                # max |world - one process| and max |one process| of each
+                # leaf's block, then the maxima over the ranks
+                g = captured.pop("grads")
+                one = torch.load(one_grads, mmap=True, map_location="cpu")
+                names = sorted(g)
+                stats = []
+                for k in names:
+                    want = A.slice_leaf(one[k], specs[k], mesh).to(dev)
+                    stats.append(torch.stack([(g[k] - want).abs().max(),
+                                              want.abs().max()]))
+                stats = torch.stack(stats)
+                dist.all_reduce(stats, op=dist.ReduceOp.MAX)
+                out["grad_rel"] = dict(zip(names, (
+                    stats[:, 0] / stats[:, 1].clamp_min(1e-12)).tolist()))
+                del g, one, stats
+            if i + 1 == SHARD_SAVE_AT:
+                # the write runs on rank 0's writer thread beside step 3
+                ospecs = rules.opt_state_specs(cfg, mesh, opt)
+                t0 = time.perf_counter()
+                mgr = CheckpointManager(ckpt, mesh=mesh)
+                mgr.save(SHARD_SAVE_AT, (params, opt), specs=(specs, ospecs))
+                out["save_s"] = time.perf_counter() - t0
+                whole = rules.gather_params(cfg, mesh, params, specs)
+                if rank == 0:
+                    out["saved"] = {k: leaf_digest(v) for k, v in whole.items()}
+                del whole
+    finally:
+        counter.close()
+    out.update(losses=losses, step_ms=step_ms, sent=sent,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del opt
+
+    def specs_fn(m):
+        return rules.param_specs(cfg, m)
+
+    before = rules.gather_params(cfg, mesh, params, specs)
+
+    def same(m, placed):
+        new = specs_fn(m)
+        return all(torch.equal(placed[k], A.slice_leaf(before[k], new[k], m))
+                   for k in before)
+
+    t0 = time.perf_counter()
+    small, placed = loop.remesh(params, specs_fn, [0, 1], mesh=mesh)
+    del params
+    if small.member:
+        out["small"] = same(small, placed)
+    big, placed = loop.remesh(placed, specs_fn, mesh=small, device=dev)
+    out["big"] = same(big, placed)
+    out["remesh_s"] = time.perf_counter() - t0
+    del before, placed
+    t0 = time.perf_counter()
+    mgr.wait()
+    out["write_wait_s"] = time.perf_counter() - t0
+    A.set_mesh(None)
+    A.set_param_specs(None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hist = launch_train.main(list(SHARD_LAUNCH) + ["--device", dev.type,
+                                                   "--ckpt-dir", launch_dir])
+    out["launcher"] = {"losses": [h["loss"] for h in hist],
+                       "s": time.perf_counter() - t0}
+    return out
+
+
+def restore_digests(torch, dev, sizes, ckpt):
+    """18a's checkpoint restored on a mesh of ``sizes`` by its own specs:
+    the digests of the params gathered back (rank 0's), and the step."""
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = R.get_arch(ARCH)
+    mesh = HostMesh(sizes).bind()
+    specs = rules.param_specs(cfg, mesh)
+    template = {k: torch.empty(0, device=dev) for k in T.schema(cfg)}
+    (params, _), step = CheckpointManager(ckpt, mesh=mesh).restore(
+        (template, None), SHARD_SAVE_AT, mesh=mesh, specs=(specs, None))
+    whole = rules.gather_params(cfg, mesh, params, specs)
+    return step, ({k: leaf_digest(v) for k, v in whole.items()}
+                  if mesh.index(mesh.axis_names) == 0 else None)
+
+
+def phase18_serve_rank(rank, world, dev, *, sizes, prompt, ckpt):
+    """One rank of 18b, after restoring 18a's checkpoint on this (1, 2)
+    mesh (``restore_digests``): qwen3-moe-30b-a3b drawn as this rank's
+    slices of phase 14's weights (the serving layout: experts and vocab
+    split over model), make_prefill_step on the (1, 4096) prompt with
+    kernel 3 twice (counted, timed), then once more recording the routed
+    sets and timing the all-reduces."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import moe
+    from repro_torch.models import registry as R
+    from repro_torch.sharding import activation as A
+    from repro_torch.sharding import rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    out["restored"] = restore_digests(torch, dev, sizes, ckpt)
+    torch.cuda.empty_cache()
+    cfg = R.get_arch(MOE_ARCH)
+    kcfg = cfg.with_(use_flash_kernel=True)
+    specs = rules.param_specs(cfg, HostMesh(sizes), serving=True)
+    mesh = HostMesh(sizes).bind()
+    A.set_mesh(mesh)
+    A.set_param_specs(specs)
+    out["index"] = mesh.index("model")
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        w = launch.init_weights(cfg, seed=0, device=dev, compute_dtype=True,
+                                mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        out["draw_s"] = time.perf_counter() - t0
+        out["bytes"] = sum(x.numel() * x.element_size() for x in w.values())
+        out["sums"] = {k: leaf_checksum(torch, x) for k, x in w.items()}
+        tokens = prompt.to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            k3.launches = 0
+            t0 = time.perf_counter()
+            logits, cache = launch.run_prefill(kcfg, w, tokens)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["launches"] = k3.launches
+            del cache
+        out["prefill_ms"] = ms
+        out["logits"] = logits.float().cpu()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        routes, route = [], moe.route
+        reduce_ms, all_reduce = [], dist.all_reduce
+
+        def recording(c, lg):
+            gates, experts = route(c, lg)
+            routes.append(torch.sort(experts, dim=-1).values.to(torch.uint8))
+            return gates, experts
+
+        def timed(t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = all_reduce(t, *a, **kw)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        moe.route, dist.all_reduce = recording, timed
+        try:
+            k3.launches = 0
+            launch.run_prefill(kcfg, w, tokens)
+        finally:
+            moe.route, dist.all_reduce = route, all_reduce
+        out["routes"] = torch.stack(routes).cpu()
+        out["reduce_ms"] = reduce_ms
+    return out
+
+
+def phase18_sharded(torch, dev, card, moe_ref: dict) -> dict:
+    """Phase 18: 18a training qwen3-0.6b in a (2, 2) gloo world against one
+    process, its checkpoint restored in one process and in a (1, 2) world,
+    remesh, the launcher's --model-parallel 2; 18b qwen3-moe-30b-a3b's
+    prefill in a (1, 2) world against phase 14a."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch import world
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as O
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    out, sub = {}, {}
+    cfg = R.get_arch(ARCH)
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-shard-"))
+    try:
+        # -- 18a: one process, then the (2, 2) world ---------------------
+        t_sub = time.perf_counter()
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0)
+        batches = [data.batch(i) for i in range(SHARD_STEPS)]
+        params = launch.init_weights(cfg, seed=0, device=dev)
+        adam = O.adamw(TRAIN_LR)
+        captured = {}
+
+        def update(grads, state, p):
+            captured.setdefault("grads", grads)
+            return adam.update(grads, state, p)
+
+        step = R.make_train_step(cfg, O.Optimizer(adam.init, update),
+                                 micro_batches=SHARD_MICRO)
+        opt = step.init_opt(params)
+        one_bytes = tree_bytes((params, opt["m"], opt["v"]))
+        one_losses, one_ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, b)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            one_losses.append(float(met["loss"]))
+        torch.save({k: g.cpu() for k, g in captured["grads"].items()},
+                   tmp / "one_grads.pt")
+        del params, opt, step, captured
+        launch_losses, launch_params = launcher_one_process(torch, cfg, dev)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = world.run_world(
+            "chip_smoke:phase18_train_rank", math.prod(SHARD_TRAIN_WORLD),
+            kwargs={"sizes": SHARD_TRAIN_WORLD, "batches": batches,
+                    "ckpt": str(tmp / "world"), "launch_dir": str(tmp / "launch"),
+                    "one_grads": str(tmp / "one_grads.pt")},
+            backend="gloo", device="cuda", timeout=SHARD_TIMEOUT)
+        t_world = time.perf_counter() - t0
+        r0 = ranks[0]
+        losses = r0["losses"]
+        check(all(r["losses"] == losses for r in ranks),
+              "18a: the ranks' losses differ")
+        loss_ok = abs(losses[0] - one_losses[0]) <= SHARD_LOSS_RTOL * abs(one_losses[0])
+        worst_k = max(r0["grad_rel"], key=r0["grad_rel"].get)
+        worst = r0["grad_rel"][worst_k]
+        print(f"[shard] 18a {ARCH} at full width and depth ({cfg.n_layers} layers, "
+              f"f32 masters, AdamW, SyntheticLM seq {TRAIN_SEQ} x global batch "
+              f"{TRAIN_BATCH}, micro_batches={SHARD_MICRO}) in a (data "
+              f"{SHARD_TRAIN_WORLD[0]} x model {SHARD_TRAIN_WORLD[1]}) gloo world on "
+              f"the one card, {t_world:.1f} s with start-up: step-1 loss {losses[0]:.6f} "
+              f"vs one process {one_losses[0]:.6f} (rtol {SHARD_LOSS_RTOL}); "
+              f"gradients max-norm relative worst {worst:.3e} at {worst_k} "
+              f"(<= {SHARD_GRAD_REL}) [{card}]")
+        print(f"[shard] 18a losses, world / one process: "
+              + "; ".join(f"step {i + 1} {a:.6f} / {b:.6f}"
+                          for i, (a, b) in enumerate(zip(losses, one_losses)))
+              + f" [{card}]")
+        print(f"[shard] 18a a rank's masters + AdamW m, v: "
+              f"{[round(r['state_bytes'] / 1e9, 3) for r in ranks]} GB (one "
+              f"process {one_bytes / 1e9:.3f} GB); step ms, world (rank 0) "
+              f"{[round(x, 1) for x in r0['step_ms']]} vs one process "
+              f"{[round(x, 1) for x in one_ms]}; bytes a rank hands to "
+              f"collectives a step {[round(x / 1e9, 3) for x in r0['sent']]} GB; "
+              f"draw {r0['draw_s']:.1f} s; peak {[round(r['peak_gib'], 2) for r in ranks]} "
+              f"GiB [{card}]")
+        check(loss_ok, "18a: the world's step-1 loss is off the one-process loss")
+        check(worst <= SHARD_GRAD_REL, f"18a: gradient {worst_k} off by {worst:.3e}")
+        check(all(np.isfinite(x) for x in losses), "18a: losses not finite")
+
+        # the world's checkpoint, in one process and in a (1, 2) world
+        template = {k: torch.empty(0) for k in T.schema(cfg)}
+        t0 = time.perf_counter()
+        (restored, _), step_no = CheckpointManager(tmp / "world").restore(
+            (template, None), SHARD_SAVE_AT)
+        one_digests = {k: leaf_digest(v) for k, v in restored.items()}
+        t_restore = time.perf_counter() - t0
+        del restored
+        same_one = one_digests == r0["saved"]
+        print(f"[shard] 18a checkpoint at step {SHARD_SAVE_AT}: each rank's slices sent "
+              f"to rank 0's host in {r0['save_s']:.1f} s, written by its writer thread "
+              f"beside step 3 and remesh ({r0['write_wait_s']:.1f} s more to wait), "
+              f"{dir_bytes(tmp / 'world') / 2**30:.2f} GiB; "
+              f"restored in one process ({t_restore:.1f} s) bit for bit "
+              f"{same_one}; remesh onto ranks 0-1 and back onto 4, each leaf "
+              f"bit for bit {[r.get('small') for r in ranks[:2]]}, "
+              f"{[r['big'] for r in ranks]} ({r0['remesh_s']:.1f} s) [{card}]")
+        check(step_no == SHARD_SAVE_AT and same_one,
+              "18a: the one-process restore differs from the world's params")
+        check(all(r["small"] for r in ranks[:2]) and all(r["big"] for r in ranks),
+              "18a: remesh changed a leaf")
+        lh = [r["launcher"]["losses"] for r in ranks]
+        check(all(x == lh[0] for x in lh) and len(lh[0]) == LAUNCH_STEPS
+              and all(np.isfinite(x) for x in lh[0]), "18a: the launcher's run")
+        check((tmp / "launch" / f"step_{LAUNCH_STEPS}").exists(),
+              "18a: no launcher checkpoint")
+        t0 = time.perf_counter()
+        (got, _), _ = CheckpointManager(tmp / "launch").restore(
+            ({k: torch.empty(0, device=dev) for k in T.schema(cfg)}, None),
+            LAUNCH_STEPS)
+        drift = max((got[k] - launch_params[k].to(dev)).abs().max().item()
+                    for k in got)
+        t_restore = time.perf_counter() - t0
+        del got, launch_params
+        launch_ok = (abs(lh[0][0] - launch_losses[0])
+                     <= SHARD_LOSS_RTOL * abs(launch_losses[0]))
+        print(f"[shard] 18a launch.train.main({' '.join(SHARD_LAUNCH)}) in the "
+              f"world: {r0['launcher']['s']:.1f} s, losses "
+              + "; ".join(f"step {i + 1} {a:.6f} / one process {b:.6f}"
+                          for i, (a, b) in enumerate(zip(lh[0], launch_losses)))
+              + f" (step 1 rtol {SHARD_LOSS_RTOL}); its step-{LAUNCH_STEPS} "
+              f"checkpoint restored in one process ({t_restore:.1f} s), max "
+              f"|world - one process| {drift:.3e} (<= {LAUNCH_DRIFT:.3e}, AdamW's "
+              f"drift) [{card}]")
+        check(launch_ok, "18a: the launcher's step-1 loss is off one process's")
+        check(drift <= LAUNCH_DRIFT, "18a: the launcher's checkpoint is off one "
+              "process's params")
+        out["18a"] = {"losses": losses, "one_losses": one_losses,
+                      "launcher_losses": lh[0], "launcher_one": launch_losses,
+                      "launcher_drift": drift,
+                      "grad_rel": worst, "step_ms": r0["step_ms"],
+                      "one_step_ms": one_ms, "sent": r0["sent"],
+                      "state_bytes": [r["state_bytes"] for r in ranks],
+                      "one_state_bytes": one_bytes, "world_s": t_world}
+        sub["18a"] = time.perf_counter() - t_sub
+
+        # -- 18b: qwen3-moe's prefill in a (1, 2) world ------------------
+        t_sub = time.perf_counter()
+        mcfg = R.get_arch(MOE_ARCH)
+        t0 = time.perf_counter()
+        ranks = world.run_world(
+            "chip_smoke:phase18_serve_rank", math.prod(SHARD_SERVE_WORLD),
+            kwargs={"sizes": SHARD_SERVE_WORLD, "prompt": moe_ref["prompt"],
+                    "ckpt": str(tmp / "world")},
+            backend="gloo", device="cuda", timeout=SHARD_TIMEOUT)
+        t_world = time.perf_counter() - t0
+        ranks.sort(key=lambda r: r["index"])
+        step_no, digests = ranks[0]["restored"]
+        print(f"[shard] 18a's checkpoint restored in the (1, 2) world by its own "
+              f"specs (before 18b): bit for bit {digests == r0['saved']} [{card}]")
+        check(step_no == SHARD_SAVE_AT and digests == r0["saved"],
+              "18a: the (1, 2) world's restore differs from the world's params")
+        sums_ok = [r["sums"] == moe_ref["sums"][r["index"]] for r in ranks]
+        launches = [r["launches"] for r in ranks]
+        want = moe_ref["logits"].to(dev)
+        got = ranks[0]["logits"].to(dev)
+        same = all(torch.equal(r["logits"], ranks[0]["logits"]) for r in ranks)
+        ok, msg = logits_agree(torch, got, want, "bfloat16", 5e-2)
+        alike = (ranks[0]["routes"] == moe_ref["routes"]).all(dim=-1)
+        red = ranks[0]["reduce_ms"]
+        print(f"[shard] 18b {MOE_ARCH} at full width and depth in a (data 1 x model "
+              f"2) gloo world: {mcfg.moe.num_experts // 2} experts and half the vocab "
+              f"a rank, attention replicated, kernel 3 on; each rank's weights "
+              f"{[round(r['bytes'] / 1e9, 2) for r in ranks]} GB, drawn as its "
+              f"slices of phase 14's in {[round(r['draw_s'], 1) for r in ranks]} s, "
+              f"checksums equal phase 14's {sums_ok}; {t_world:.1f} s with "
+              f"start-up [{card}]")
+        print(f"[shard] 18b (1, {MOE_PREFILL_SEQ}) make_prefill_step: kernel 3 "
+              f"launches {launches} a rank; ms first / second call "
+              f"{[[round(x, 1) for x in r['prefill_ms']] for r in ranks]}; peak "
+              f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; all-reduces "
+              f"{len(red)} a prefill ({mcfg.n_layers} combines + the embedding), "
+              f"{sum(red):.1f} ms in all (synchronized, third call); routed sets "
+              f"alike phase 14a's {100 * alike.float().mean().item():.3f} % "
+              f"({int((~alike).sum())} of {alike.numel()}); logits the same on "
+              f"every rank {same}; vs 14a's kernel-path logits: {msg} [{card}]")
+        check(all(sums_ok), "18b: a rank's weights are not its slice of phase 14's")
+        check(launches == [mcfg.n_layers] * len(ranks),
+              f"18b: kernel 3 launches {launches} != {mcfg.n_layers} a rank")
+        check(same and bool(torch.isfinite(got).all()), "18b: the ranks' logits")
+        check(ok, "18b: the world's logits disagree with phase 14a's")
+        out["18b"] = {"launches": launches, "prefill_ms": [r["prefill_ms"] for r in ranks],
+                      "peak_gib": [r["peak_gib"] for r in ranks],
+                      "reduce_ms": sum(red), "alike": alike.float().mean().item(),
+                      "world_s": t_world}
+        sub["18b"] = time.perf_counter() - t_sub
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[shard] phase 18 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sub.items()) + ")")
+    check(out["seconds"] <= PHASE18_LIMIT_S,
+          f"phase 18 took {out['seconds']:.1f} s > {PHASE18_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5277,6 +5862,11 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     encdec17 = phase17_encdec_vlm(torch, dev, card)
 
+    # -- 18. training and serving across processes (gloo worlds) ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard18 = phase18_sharded(torch, dev, card, moe14.pop("world_ref"))
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -5330,7 +5920,9 @@ def run(torch) -> int:
                             **moe14["flash"]},
                     "encdec_vlm": {"launches": {"17a": encdec17["17a"]["launches"],
                                                 "17b": encdec17["17b"]["launches"]},
-                                   **encdec17["17c"]}})
+                                   **encdec17["17c"]},
+                    "sharded": {"arch": MOE_ARCH, "world": SHARD_SERVE_WORLD,
+                                "launches": {"18b": shard18["18b"]["launches"]}}})
     fdec = times8["factored_decode"]["per_state"]
     kernels.append({"name": "factored_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/factored_decode.cu",

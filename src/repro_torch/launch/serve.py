@@ -47,14 +47,22 @@ from repro_torch.serve.scheduler import Scheduler
 
 
 def init_weights(cfg: ModelCfg, *, seed: int = 0, device=None,
-                 compute_dtype: bool = False) -> dict:
+                 compute_dtype: bool = False, mesh=None,
+                 specs: dict | None = None) -> dict:
     """Random f32 master weights at the schema's scales, from ``seed``; with
     ``compute_dtype`` drawn straight into the activation dtype instead
     (``transformer.init_params``), which serving an MoE configuration needs:
-    qwen3-moe-30b-a3b's f32 masters (122 GB) do not fit one card."""
+    qwen3-moe-30b-a3b's f32 masters (122 GB) do not fit one card.
+
+    With a bound ``mesh`` and ``specs`` (``sharding.rules.param_specs``)
+    each rank replays the same draws and keeps its slice of each, bit for
+    bit the slice of the one-process weights.  This helper is the port's
+    own: the reference initialises the whole model and then shards it
+    (``shard_params``), which at 61 GB does not fit beside a second rank on
+    one card."""
     dev = resolve_device(device)
     return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, mesh=mesh, specs=specs)
 
 
 def make_prompts(n: int, length: int, vocab: int, *, seed: int = 1) -> list[list[int]]:

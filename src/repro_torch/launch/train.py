@@ -1,15 +1,28 @@
 """The training launcher (port of ``repro/launch/train.py``): random
 weights from a seed, the train step, the token pipeline and the
 fault-tolerant loop (resume, retry, rollback, emergency save, straggler
-watch), on one card.
+watch), on one card or across processes.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke --steps 4
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --smoke --model-parallel 2
 
 Without ``--device`` it runs on the card and raises where there is none.
-The reference's mesh (data x model over every device, sharded params,
-``jax.distributed`` across hosts) waits for training across processes: a
-``--model-parallel`` above 1 and a multi-host environment raise, naming
-ROADMAP Queue 1 item 16g.
+
+Across processes (one process a device): inside a ``torch.distributed``
+world that is already up (``launch.world.run_world``) it uses that world;
+where ``torchrun`` describes one (``WORLD_SIZE``, ``RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``: the counterpart of the reference's
+``JAX_COORDINATOR``) it joins it, with ``nccl`` where each local rank has
+a card of its own and ``gloo`` otherwise (and on the CPU).  The (data,
+model) mesh is ``make_host_mesh(--model-parallel)`` (1 where that does not
+divide the world, as the reference's ``build_mesh``); the params and the
+optimizer state are each rank's slices (``sharding.rules``), drawn as the
+one-process run draws them.  Each data rank reads its own rows of every
+batch (``host_id`` = its data index, so the ranks of one model line read
+the same rows; the reference takes ``jax.process_index()``, one host
+holding many devices) and the data axis puts the global batch together,
+which the train step takes.
 """
 
 from __future__ import annotations
@@ -19,20 +32,24 @@ import logging
 import os
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import smoke_config
 from repro_torch.data.pipeline import MemmapTokens, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import init_weights
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
+from repro_torch.sharding import activation as A
+from repro_torch.sharding import rules
 from repro_torch.train.loop import LoopConfig, train
 
 log = logging.getLogger("repro_torch.launch.train")
 
-# what the reference reads to join a pod slice (jax.distributed.initialize)
-MULTI_HOST_ENV = "JAX_COORDINATOR"
-NOT_PORTED = "training across processes (ROADMAP Queue 1 item 16g) is not ported yet"
+# what torchrun sets for each process (the reference reads JAX_COORDINATOR)
+LAUNCH_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,37 +74,89 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def join_world(dev: torch.device) -> tuple[torch.device, bool]:
+    """Join the world ``torchrun`` describes, unless one is up already or
+    none is described: this rank's device (its own card where each local
+    rank has one) and whether this call joined."""
+    if dist.is_initialized() or not all(k in os.environ for k in LAUNCH_ENV):
+        return dev, False
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    own_card = dev.type == "cuda" and torch.cuda.device_count() >= local
+    if own_card:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if own_card else "gloo",
+                            init_method="env://")
+    return dev, True
+
+
+class GlobalBatches:
+    """Each data rank reads its rows of a batch (``data`` sharded by
+    host); the data axis gathers them into the global batch."""
+
+    def __init__(self, data, mesh, device):
+        self.data, self.mesh, self.device = data, mesh, device
+
+    def batch(self, step: int) -> dict:
+        return {k: A.gather(torch.as_tensor(v).to(self.device), 0, self.mesh,
+                            "data")
+                for k, v in self.data.batch(step).items()}
+
+
 def main(argv=None) -> list[dict]:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {args.model_parallel}: "
-                                  + NOT_PORTED)
-    if MULTI_HOST_ENV in os.environ:
-        raise NotImplementedError(f"a multi-host environment "
-                                  f"({MULTI_HOST_ENV} is set): " + NOT_PORTED)
-    dev = resolve_device(args.device)
+    dev, joined = join_world(resolve_device(args.device))
     cfg = R.get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    log.info("device %s | arch %s (%.1fM params)", dev, cfg.name,
-             T.param_count(cfg) / 1e6)
 
-    params = init_weights(cfg, seed=args.seed, device=dev)
+    mesh = make_host_mesh(args.model_parallel)
+    specs = host_id = None
+    n_hosts = 1
+    if mesh.bound:
+        specs = rules.param_specs(cfg, mesh)
+        A.set_mesh(mesh)
+        A.set_param_specs(specs)
+        host_id, n_hosts = mesh.index("data"), mesh.size("data")
+        log.info("mesh %s | rank %d | backend %s | arch %s (%.1fM params)",
+                 mesh.shape, dist.get_rank(), dist.get_backend(), cfg.name,
+                 T.param_count(cfg) / 1e6)
+    else:
+        log.info("device %s | arch %s (%.1fM params)", dev, cfg.name,
+                 T.param_count(cfg) / 1e6)
+
+    params = init_weights(cfg, seed=args.seed, device=dev,
+                          mesh=mesh if mesh.bound else None, specs=specs)
     step = R.make_train_step(cfg, optimizer=args.optimizer, lr=args.lr,
                              micro_batches=args.micro_batches)
     opt_state = step.init_opt(params)
+    host = dict(host_id=host_id or 0, num_hosts=n_hosts)
     if args.data:
         data = MemmapTokens(args.data, seq_len=args.seq,
-                            global_batch=args.global_batch)
+                            global_batch=args.global_batch, **host)
     else:
         data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
-                           global_batch=args.global_batch, seed=args.seed)
+                           global_batch=args.global_batch, seed=args.seed,
+                           **host)
 
     lcfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                       ckpt_dir=args.ckpt_dir)
-    params, opt_state, hist = train(step, params, opt_state, data, lcfg)
+    try:
+        if mesh.bound:
+            tree_specs = (specs, rules.opt_state_specs(cfg, mesh, opt_state))
+            params, opt_state, hist = train(
+                step, params, opt_state, GlobalBatches(data, mesh, dev), lcfg,
+                mesh=mesh, specs=tree_specs)
+        else:
+            params, opt_state, hist = train(step, params, opt_state, data, lcfg)
+    finally:
+        if mesh.bound:
+            A.set_mesh(None)
+            A.set_param_specs(None)
+        if joined:
+            dist.destroy_process_group()
     if hist:
         med = float(np.median([h["dt"] for h in hist]))
         toks = args.global_batch * args.seq / med

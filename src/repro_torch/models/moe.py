@@ -16,9 +16,13 @@ the activation dtype, as the reference's scatter-add over the sorted pairs
 does, as a gather and k - 1 adds: an atomic ``index_add_`` on the card
 adds in no fixed order, and bf16 sums would differ from run to run.
 
-The reference's expert-parallel ``shard_map`` branch (experts sharded over
-a mesh's ``model`` axis, one psum to combine) belongs to serving and
-training across processes, ROADMAP Queue 1 item 16g, and is not ported.
+Under an active mesh with a ``model`` axis that divides the experts, the
+reference's expert-parallel branch: every rank routes its own tokens (its
+rows of the batch), runs the experts [e_start, e_start + e_local) of its
+``model`` shard on them and the combine is all-reduced over ``model``.
+The capacity counts the global batch over the batch ranks, as the
+reference's.  With no mesh, or a ``model`` axis of 1, the single-card
+branch runs as before.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.layers import activation
+from repro_torch.sharding import activation as A
 
 
 def capacity(n_tokens: int, num_experts: int, top_k: int,
@@ -56,12 +61,16 @@ def route(cfg, logits: torch.Tensor):
     return gates, experts
 
 
-def _dispatch_ffn_combine(cfg, tokens, logits, wg, wu, wd, *, cap: int):
-    """Sort-based dispatch of ``tokens`` (N, D) to all E experts, batched
-    FFN, gate-weighted combine -> (N, D) in the tokens' dtype."""
+def _dispatch_ffn_combine(cfg, tokens, logits, wg, wu, wd, *, cap: int,
+                          e_start: int = 0, e_local=None):
+    """Sort-based dispatch of ``tokens`` (N, D) to experts [e_start,
+    e_start + e_local) (all E by default), batched FFN, gate-weighted
+    combine -> (N, D) in the tokens' dtype; the other experts' pairs add
+    nothing (the expert-parallel caller sums over the ranks)."""
     dt = tokens.dtype
     n, d = tokens.shape
     e, k = cfg.moe.num_experts, cfg.moe.top_k
+    e = e if e_local is None else e_local
     dev = tokens.device
     gates, experts = route(cfg, logits)
 
@@ -71,8 +80,9 @@ def _dispatch_ffn_combine(cfg, tokens, logits, wg, wu, wd, *, cap: int):
     se, stok, sgate = flat_expert[order], flat_token[order], gates.reshape(-1)[order]
     within = (torch.arange(n * k, device=dev)
               - torch.searchsorted(se, se, side="left"))
-    keep = within < cap
-    slot = torch.where(keep, se * cap + within, e * cap)
+    local_e = se - e_start
+    keep = (within < cap) & (local_e >= 0) & (local_e < e)
+    slot = torch.where(keep, local_e * cap + within, e * cap)
 
     # slot e*cap is the reference's out-of-bounds index: its writes drop
     src = torch.full((e * cap + 1,), n, dtype=torch.long, device=dev)
@@ -101,17 +111,24 @@ def _dispatch_ffn_combine(cfg, tokens, logits, wg, wu, wd, *, cap: int):
 def moe_block(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D): the routed experts over the B*S tokens
     (capacity from their count), plus the shared experts where the config
-    has them."""
+    has them.  Under a mesh: the expert-parallel branch (module
+    docstring), ``p``'s routed expert leaves this rank's E/model."""
     mcfg = cfg.moe
     dt = x.dtype
     b, s, d = x.shape
     n = b * s
     tokens = x.reshape(n, d)
-    logits = tokens.float() @ p["moe/router"].float()
-    cap = capacity(n, mcfg.num_experts, mcfg.top_k, mcfg.capacity_factor)
-    out = _dispatch_ffn_combine(
-        cfg, tokens, logits, p["moe/w_gate"].to(dt), p["moe/w_up"].to(dt),
-        p["moe/w_down"].to(dt), cap=cap).reshape(b, s, d)
+    mesh = A.get_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        b_global = A.get_global_batch() or b
+        out = _expert_parallel(cfg, p, tokens, mesh, b_global=b_global,
+                               s=s).reshape(b, s, d)
+    else:
+        logits = tokens.float() @ p["moe/router"].float()
+        cap = capacity(n, mcfg.num_experts, mcfg.top_k, mcfg.capacity_factor)
+        out = _dispatch_ffn_combine(
+            cfg, tokens, logits, p["moe/w_gate"].to(dt), p["moe/w_up"].to(dt),
+            p["moe/w_down"].to(dt), cap=cap).reshape(b, s, d)
 
     if mcfg.num_shared:                      # dense MLP, always on (deepseek)
         gate = tokens @ p["moe/shared/w_gate"].to(dt)
@@ -119,6 +136,31 @@ def moe_block(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         shared = (activation(cfg.act, gate) * up) @ p["moe/shared/w_down"].to(dt)
         out = out + shared.reshape(b, s, d)
     return out
+
+
+def _expert_parallel(cfg, p, tokens, mesh, *, b_global: int, s: int):
+    """This rank's experts on its tokens (N_local, D), summed over
+    ``model``.  The tokens and the router enter the split work alike on
+    every model rank, so their cotangents sum over ``model``; the sum of
+    the ranks' parts is the same everywhere, so its cotangent passes."""
+    mcfg = cfg.moe
+    e, k = mcfg.num_experts, mcfg.top_k
+    n_model = mesh.size("model")
+    if e % n_model:
+        raise ValueError(f"{e} experts do not split over a model axis of "
+                         f"{n_model}")
+    e_local = e // n_model
+    dp = mesh.world_size // n_model
+    n_loc = max(1, b_global * s // dp)
+    cap = capacity(n_loc, e, k, mcfg.capacity_factor)
+    dt = tokens.dtype
+    toks = A.enter(tokens, "model", mesh)
+    logits = toks.float() @ A.enter(p["moe/router"], "model", mesh).float()
+    out = _dispatch_ffn_combine(
+        cfg, toks, logits, p["moe/w_gate"].to(dt), p["moe/w_up"].to(dt),
+        p["moe/w_down"].to(dt), cap=cap,
+        e_start=mesh.index("model") * e_local, e_local=e_local)
+    return A.psum(out, "model", mesh)
 
 
 def aux_load_balance_loss(logits_f32: torch.Tensor, experts: torch.Tensor,

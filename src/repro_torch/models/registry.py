@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelCfg, smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import softcap
 from repro_torch.optim import optimizers as opt_mod
+from repro_torch.sharding import activation as A
 
 
 def get_arch(name: str) -> ModelCfg:
@@ -47,57 +48,105 @@ def make_train_step(cfg: ModelCfg, optimizer="adamw", lr: float = 3e-4,
     state are returned.
 
     Kernel 3 has no backward in either package, so a configuration with
-    ``use_flash_kernel`` set is refused."""
+    ``use_flash_kernel`` set is refused.
+
+    Under an active mesh (``sharding.activation``) every rank passes the
+    global batch and its slices of the params and state (stored as
+    ``transformer.stored_specs``): the loss is the global masked mean, the
+    gradients of the gathered compute copies go back through
+    ``activation.reduce_grad`` (summed over the batch axes) in f32, a leaf
+    held whole on every batch rank has its gradient all-reduced over them,
+    and ``grad_norm`` counts each element of the global gradient once."""
     if cfg.use_flash_kernel:
         raise ValueError("the flash-attention kernel has no backward: train "
                          "with use_flash_kernel=False (the reference's "
                          "training default)")
     tx = opt_mod.get(optimizer, lr) if isinstance(optimizer, str) else optimizer
 
-    act = getattr(torch, cfg.activation_dtype)
-
     def step(params, opt_state, batch):
-        dev = next(iter(params.values())).device
-        batch = {k: torch.as_tensor(v).to(dev, torch.long if k in ("tokens", "labels")
-                                          else act)
-                 for k, v in batch.items()
-                 if k in ("tokens", "labels", "img_embeds", "enc_embeds")}
-        b = batch["tokens"].shape[0]
-        if b % micro_batches:
-            raise ValueError(f"batch {b} does not split into {micro_batches} "
-                             f"microbatches")
-        # the cast copies are the leaves autograd differentiates; their
-        # gradients cross the cast to the masters' dtype at the end, as the
-        # reference's cotangents do
-        with torch.no_grad():
-            cast = T.cast_params_for_compute(cfg, params)
-        leaves = {k: w.detach().requires_grad_() for k, w in cast.items()}
-        names = sorted(leaves)
-        inputs = [leaves[k] for k in names]
-        acc, total = None, None
-        for j in range(micro_batches):
-            mb = {k: v.chunk(micro_batches)[j] for k, v in batch.items()}
-            loss = T.loss_fn(cfg, leaves, mb)
-            gs = torch.autograd.grad(loss / micro_batches, inputs,
-                                     allow_unused=True, materialize_grads=True)
-            acc = list(gs) if acc is None else [a + g for a, g in zip(acc, gs)]
-            loss = loss.detach()
-            total = loss if total is None else total + loss
-        grads = {k: g.to(params[k].dtype) for k, g in zip(names, acc)}
-        del acc, leaves, inputs, cast
+        loss, grads = loss_and_grads(cfg, params, batch, micro_batches)
         updates, opt_state = tx.update(grads, opt_state, params)
         params = {k: params[k] + updates[k] for k in params}
-        gnorm = torch.sqrt(sum(torch.vdot(grads[k].reshape(-1),
-                                          grads[k].reshape(-1))
-                               for k in names))
-        return params, opt_state, {"loss": total / micro_batches,
-                                   "grad_norm": gnorm}
+        gnorm = torch.sqrt(_sq_norm(cfg, A.get_mesh(), grads))
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     def init_opt(params):
         return tx.init(params)
 
     step.init_opt = init_opt
     return step
+
+
+def loss_and_grads(cfg: ModelCfg, params: dict, batch: dict,
+                   micro_batches: int = 1) -> tuple[torch.Tensor, dict]:
+    """The train step's loss (an f32 scalar) and the gradient of every
+    param in its dtype (``make_train_step``); under a mesh the loss is the
+    global one and each gradient this rank's slice of the global one."""
+    dev = next(iter(params.values())).device
+    act = getattr(torch, cfg.activation_dtype)
+    batch = {k: torch.as_tensor(v).to(dev, torch.long if k in ("tokens", "labels")
+                                      else act)
+             for k, v in batch.items()
+             if k in ("tokens", "labels", "img_embeds", "enc_embeds")}
+    b = batch["tokens"].shape[0]
+    if b % micro_batches:
+        raise ValueError(f"batch {b} does not split into {micro_batches} "
+                         f"microbatches")
+    # the cast copies are the leaves autograd differentiates; their
+    # gradients cross the cast to the masters' dtype at the end, as the
+    # reference's cotangents do
+    mesh = A.get_mesh()
+    with torch.no_grad():
+        cast = T.cast_params_for_compute(cfg, params)
+    leaves = {k: w.detach().requires_grad_() for k, w in cast.items()}
+    names = sorted(leaves)
+    inputs = [leaves[k] for k in names]
+    acc, total = None, None
+    for j in range(micro_batches):
+        mb = {k: v.chunk(micro_batches)[j] for k, v in batch.items()}
+        loss = T.loss_fn(cfg, leaves, mb)
+        gs = torch.autograd.grad(loss / micro_batches, inputs,
+                                 allow_unused=True, materialize_grads=True)
+        acc = list(gs) if acc is None else [a + g for a, g in zip(acc, gs)]
+        loss = loss.detach()
+        total = loss if total is None else total + loss
+    grads = {k: g.to(params[k].dtype) for k, g in zip(names, acc)}
+    del acc, leaves, inputs, cast
+    if mesh is not None:
+        grads = _reduce_grads(cfg, mesh, grads)
+    return total / micro_batches, grads
+
+
+def _reduce_grads(cfg, mesh, grads: dict) -> dict:
+    """Each gradient of a gathered compute copy, as its stored slice's
+    (``activation.reduce_grad``), then summed over the batch axes where the
+    leaf is whole on every batch rank."""
+    specs = T.stored_specs(cfg, mesh)
+    ba = A.batch_axes_of(mesh)
+    out = {}
+    for k, g in grads.items():
+        spec = T.compute_spec(k, specs[k])
+        g = A.reduce_grad(g, spec, mesh)
+        if ba and not A.split_axes(spec) & set(ba):
+            g = A.all_reduce(g, mesh, ba)
+        out[k] = g
+    return out
+
+
+def _sq_norm(cfg, mesh, grads: dict) -> torch.Tensor:
+    """|g|^2 of the whole gradient.  Under a mesh each rank adds the
+    slices it is the first holder of, and one all-reduce sums the ranks."""
+    if mesh is None:
+        return sum(torch.vdot(g.reshape(-1), g.reshape(-1))
+                   for _, g in sorted(grads.items()))
+    specs = T.stored_specs(cfg, mesh)
+    sq = torch.zeros((), dtype=torch.float32,
+                     device=next(iter(grads.values())).device)
+    for k, g in sorted(grads.items()):
+        split = A.split_axes(specs[k])
+        if all(mesh.index(a) == 0 for a in mesh.axis_names if a not in split):
+            sq = sq + torch.vdot(g.reshape(-1), g.reshape(-1)).float()
+    return A.all_reduce(sq, mesh, mesh.axis_names)
 
 
 def _final_logits(cfg, logits: torch.Tensor) -> torch.Tensor:
@@ -119,9 +168,22 @@ def make_prefill_step(cfg: ModelCfg) -> Callable:
                         img_embeds=batch.get("img_embeds"),
                         enc_embeds=batch.get("enc_embeds"),
                         return_cache=True, last_only=True)
-        return _final_logits(cfg, out.logits[:, -1]), out.cache
+        return _last_logits(cfg, out.logits, batch["tokens"].shape[0]), out.cache
 
     return step
+
+
+def _last_logits(cfg, logits: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, V) f32 last-position logits; under a mesh gathered over the
+    vocab and the batch, the same on every rank (this rank's cache keeps
+    its own rows)."""
+    last = logits[:, -1]
+    mesh = A.get_mesh()
+    if mesh is not None:
+        if T._vocab_parallel(mesh, cfg.vocab):
+            last = A.gather(last, -1, mesh, "model")
+        last = A.global_rows(mesh, last, n)
+    return _final_logits(cfg, last)
 
 
 def make_serve_step(cfg: ModelCfg) -> Callable:
@@ -137,7 +199,7 @@ def make_serve_step(cfg: ModelCfg) -> Callable:
                         write_pos=batch["write_pos"],
                         kv_factors=batch.get("kv_factors"),
                         comp_len=batch.get("comp_len"), last_only=True)
-        return _final_logits(cfg, out.logits[:, -1]), out.cache
+        return _last_logits(cfg, out.logits, batch["tokens"].shape[0]), out.cache
 
     return step
 

@@ -31,13 +31,22 @@ order), full-context decode with or without the factored
 prefix, windowed decode and chunked prefill over a ring-buffer cache,
 absorbed latent decode and chunked prefill into a latent cache, recurrent
 state carried through a cache (written back in place), and
-the single-card training loss (``cross_entropy``, ``loss_fn``;
+the training loss (``cross_entropy``, ``loss_fn``;
 autograd runs through the forward, which never writes a tensor autograd
 saved: the only in-place writes are those of a cache, and training passes
 none).
-The reference's ``sharding.activation.constrain`` and the mesh branches of
-``embed_tokens`` are no-ops on one card and are dropped.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP item.
+
+Under an active mesh (``sharding.activation.set_mesh``; one process a
+device) the entry points take the global batch and params stored as the
+registered specs (``sharding.rules``): ``forward`` keeps this rank's rows
+(``activation.local_rows``), ``cast_params_for_compute`` gathers every
+stored leaf but the vocab tables' and the routed experts' ``model`` slices
+(the reference's ZeRO path), the embedding and the logits are
+vocab-parallel and the routed experts expert-parallel (``models/moe.py``).
+The model axis computes the rest alike on each of its ranks: where the
+reference splits heads and MLP across it (tensor parallelism, its
+``tp`` flag) the port gathers them too, which changes where work runs,
+not what it computes.
 """
 
 from __future__ import annotations
@@ -53,19 +62,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
-
-_NOT_PORTED = {
-    "vocab_parallel": "the vocab-parallel loss across processes (ROADMAP "
-                      "Queue 1 item 16g)",
-}
-
+from repro_torch.sharding import activation as A
 
 # whisper's encoder layers: dense attention and MLP, no cross-attention
 ENC_SPEC = LayerSpec(mixer="attn", ffn="mlp")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_NOT_PORTED[what]} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -75,13 +75,14 @@ def not_ported(what: str) -> NotImplementedError:
 @dataclasses.dataclass
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]   # logical axes (sharding/rules.py)
     scale: float = 0.02               # init std (0 -> zeros)
 
 
 def _norm_defs(cfg, prefix) -> dict[str, ParamDef]:
-    d = {f"{prefix}/scale": ParamDef((cfg.d_model,), 0.0)}
+    d = {f"{prefix}/scale": ParamDef((cfg.d_model,), (None,), 0.0)}
     if cfg.norm == "layernorm":
-        d[f"{prefix}/bias"] = ParamDef((cfg.d_model,), 0.0)
+        d[f"{prefix}/bias"] = ParamDef((cfg.d_model,), (None,), 0.0)
     return d
 
 
@@ -99,76 +100,84 @@ def _layer_defs(cfg: ModelCfg, spec: LayerSpec) -> dict[str, ParamDef]:
         defs.update(_norm_defs(cfg, "norm2_post"))
     if spec.mixer == "mla":
         m = cfg.mla
-        defs["mla/wq"] = ParamDef((D, H, m.qk_nope_dim + m.qk_rope_dim), s_in)
-        defs["mla/w_dkv"] = ParamDef((D, m.kv_lora_rank), s_in)
-        defs["mla/kv_norm"] = ParamDef((m.kv_lora_rank,), 0.0)
-        defs["mla/w_kr"] = ParamDef((D, m.qk_rope_dim), s_in)
-        defs["mla/w_uk"] = ParamDef((m.kv_lora_rank, H, m.qk_nope_dim), s_in)
-        defs["mla/w_uv"] = ParamDef((m.kv_lora_rank, H, m.v_head_dim), s_in)
-        defs["mla/wo"] = ParamDef((H * m.v_head_dim, D), s_out)
+        defs["mla/wq"] = ParamDef((D, H, m.qk_nope_dim + m.qk_rope_dim),
+                                   ("embed", "heads", None), s_in)
+        defs["mla/w_dkv"] = ParamDef((D, m.kv_lora_rank), ("embed", None), s_in)
+        defs["mla/kv_norm"] = ParamDef((m.kv_lora_rank,), (None,), 0.0)
+        defs["mla/w_kr"] = ParamDef((D, m.qk_rope_dim), ("embed", None), s_in)
+        defs["mla/w_uk"] = ParamDef((m.kv_lora_rank, H, m.qk_nope_dim),
+                                    (None, "heads", None), s_in)
+        defs["mla/w_uv"] = ParamDef((m.kv_lora_rank, H, m.v_head_dim),
+                                    (None, "heads", None), s_in)
+        defs["mla/wo"] = ParamDef((H * m.v_head_dim, D), ("heads", "embed"),
+                                  s_out)
     elif spec.mixer == "rglru":
         Dr = cfg.rnn.d_rnn or D
         W = cfg.rnn.conv_width
-        defs["rnn/w_in"] = ParamDef((D, Dr), s_in)
-        defs["rnn/w_gate_in"] = ParamDef((D, Dr), s_in)
-        defs["rnn/conv_w"] = ParamDef((W, Dr), 0.3)
-        defs["rnn/w_a"] = ParamDef((Dr, Dr), s_in)
-        defs["rnn/w_x"] = ParamDef((Dr, Dr), s_in)
-        defs["rnn/lam"] = ParamDef((Dr,), 0.5)
-        defs["rnn/w_out"] = ParamDef((Dr, D), s_out)
+        defs["rnn/w_in"] = ParamDef((D, Dr), ("embed", "inner"), s_in)
+        defs["rnn/w_gate_in"] = ParamDef((D, Dr), ("embed", "inner"), s_in)
+        defs["rnn/conv_w"] = ParamDef((W, Dr), (None, "inner"), 0.3)
+        defs["rnn/w_a"] = ParamDef((Dr, Dr), ("inner", "inner2"), s_in)
+        defs["rnn/w_x"] = ParamDef((Dr, Dr), ("inner", "inner2"), s_in)
+        defs["rnn/lam"] = ParamDef((Dr,), ("inner",), 0.5)
+        defs["rnn/w_out"] = ParamDef((Dr, D), ("inner", "embed"), s_out)
     elif spec.mixer == "mlstm":
         Di = int(cfg.rnn.mlstm_proj_factor * D)
         W = cfg.rnn.conv_width
-        defs["mlstm/w_up"] = ParamDef((D, Di), s_in)
-        defs["mlstm/w_z"] = ParamDef((D, Di), s_in)
-        defs["mlstm/conv_w"] = ParamDef((W, Di), 0.3)
-        defs["mlstm/wq"] = ParamDef((Di, Di), s_in)
-        defs["mlstm/wk"] = ParamDef((Di, Di), s_in)
-        defs["mlstm/wv"] = ParamDef((Di, Di), s_in)
-        defs["mlstm/w_ig"] = ParamDef((Di, H), s_in)
-        defs["mlstm/w_fg"] = ParamDef((Di, H), s_in)
-        defs["mlstm/w_down"] = ParamDef((Di, D), s_out)
+        defs["mlstm/w_up"] = ParamDef((D, Di), ("embed", "inner"), s_in)
+        defs["mlstm/w_z"] = ParamDef((D, Di), ("embed", "inner"), s_in)
+        defs["mlstm/conv_w"] = ParamDef((W, Di), (None, "inner"), 0.3)
+        defs["mlstm/wq"] = ParamDef((Di, Di), ("inner", "inner2"), s_in)
+        defs["mlstm/wk"] = ParamDef((Di, Di), ("inner", "inner2"), s_in)
+        defs["mlstm/wv"] = ParamDef((Di, Di), ("inner", "inner2"), s_in)
+        defs["mlstm/w_ig"] = ParamDef((Di, H), ("inner", None), s_in)
+        defs["mlstm/w_fg"] = ParamDef((Di, H), ("inner", None), s_in)
+        defs["mlstm/w_down"] = ParamDef((Di, D), ("inner", "embed"), s_out)
     elif spec.mixer == "slstm":
         hd_s = D // H
-        defs["slstm/w_x"] = ParamDef((D, 4 * D), s_in)
-        defs["slstm/r"] = ParamDef((H, hd_s, 4 * hd_s), s_in)
-        defs["slstm/w_out"] = ParamDef((D, D), s_out)
+        defs["slstm/w_x"] = ParamDef((D, 4 * D), ("embed", "inner"), s_in)
+        defs["slstm/r"] = ParamDef((H, hd_s, 4 * hd_s),
+                                   ("heads", None, None), s_in)
+        defs["slstm/w_out"] = ParamDef((D, D), ("inner", "embed"), s_out)
     elif spec.mixer == "attn":
-        defs["attn/wq"] = ParamDef((D, H, hd), s_in)
-        defs["attn/wk"] = ParamDef((D, KV, hd), s_in)
-        defs["attn/wv"] = ParamDef((D, KV, hd), s_in)
-        defs["attn/wo"] = ParamDef((H * hd, D), s_out)
+        defs["attn/wq"] = ParamDef((D, H, hd), ("embed", "heads", None), s_in)
+        defs["attn/wk"] = ParamDef((D, KV, hd), ("embed", "heads", None), s_in)
+        defs["attn/wv"] = ParamDef((D, KV, hd), ("embed", "heads", None), s_in)
+        defs["attn/wo"] = ParamDef((H * hd, D), ("heads", "embed"), s_out)
         if cfg.qkv_bias:
-            defs["attn/bq"] = ParamDef((H, hd), 0.0)
-            defs["attn/bk"] = ParamDef((KV, hd), 0.0)
-            defs["attn/bv"] = ParamDef((KV, hd), 0.0)
+            defs["attn/bq"] = ParamDef((H, hd), ("heads", None), 0.0)
+            defs["attn/bk"] = ParamDef((KV, hd), ("heads", None), 0.0)
+            defs["attn/bv"] = ParamDef((KV, hd), ("heads", None), 0.0)
         if cfg.qk_norm:
-            defs["attn/q_norm"] = ParamDef((hd,), 0.0)
-            defs["attn/k_norm"] = ParamDef((hd,), 0.0)
+            defs["attn/q_norm"] = ParamDef((hd,), (None,), 0.0)
+            defs["attn/k_norm"] = ParamDef((hd,), (None,), 0.0)
     else:
         raise ValueError(spec.mixer)
     if spec.cross_attn:
-        defs["xattn/wq"] = ParamDef((D, H, hd), s_in)
-        defs["xattn/wk"] = ParamDef((D, KV, hd), s_in)
-        defs["xattn/wv"] = ParamDef((D, KV, hd), s_in)
-        defs["xattn/wo"] = ParamDef((H * hd, D), s_out)
+        defs["xattn/wq"] = ParamDef((D, H, hd), ("embed", "heads", None), s_in)
+        defs["xattn/wk"] = ParamDef((D, KV, hd), ("embed", "heads", None), s_in)
+        defs["xattn/wv"] = ParamDef((D, KV, hd), ("embed", "heads", None), s_in)
+        defs["xattn/wo"] = ParamDef((H * hd, D), ("heads", "embed"), s_out)
         defs.update(_norm_defs(cfg, "norm_x"))
     if spec.ffn == "mlp":
-        defs["mlp/w_gate"] = ParamDef((D, F), s_in)
-        defs["mlp/w_up"] = ParamDef((D, F), s_in)
-        defs["mlp/w_down"] = ParamDef((F, D), s_out)
+        defs["mlp/w_gate"] = ParamDef((D, F), ("embed", "mlp"), s_in)
+        defs["mlp/w_up"] = ParamDef((D, F), ("embed", "mlp"), s_in)
+        defs["mlp/w_down"] = ParamDef((F, D), ("mlp", "embed"), s_out)
     elif spec.ffn == "moe":
         mc = cfg.moe
         E = mc.num_experts
-        defs["moe/router"] = ParamDef((D, E), s_in)
-        defs["moe/w_gate"] = ParamDef((E, D, mc.d_expert), s_in)
-        defs["moe/w_up"] = ParamDef((E, D, mc.d_expert), s_in)
-        defs["moe/w_down"] = ParamDef((E, mc.d_expert, D), s_out)
+        defs["moe/router"] = ParamDef((D, E), ("embed", None), s_in)
+        defs["moe/w_gate"] = ParamDef((E, D, mc.d_expert),
+                                      ("expert", "embed", None), s_in)
+        defs["moe/w_up"] = ParamDef((E, D, mc.d_expert),
+                                    ("expert", "embed", None), s_in)
+        defs["moe/w_down"] = ParamDef((E, mc.d_expert, D),
+                                      ("expert", None, "embed"), s_out)
         if mc.num_shared:
             Fs = mc.d_shared or mc.d_expert * mc.num_shared
-            defs["moe/shared/w_gate"] = ParamDef((D, Fs), s_in)
-            defs["moe/shared/w_up"] = ParamDef((D, Fs), s_in)
-            defs["moe/shared/w_down"] = ParamDef((Fs, D), s_out)
+            defs["moe/shared/w_gate"] = ParamDef((D, Fs), ("embed", "mlp"), s_in)
+            defs["moe/shared/w_up"] = ParamDef((D, Fs), ("embed", "mlp"), s_in)
+            defs["moe/shared/w_down"] = ParamDef((Fs, D), ("mlp", "embed"), s_out)
     return defs
 
 
@@ -176,12 +185,15 @@ def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
     """Full parameter schema: path -> ParamDef (the reference's names,
     shapes and init scales)."""
     defs: dict[str, ParamDef] = {}
-    defs["embed/tokens"] = ParamDef((cfg.vocab, cfg.d_model), 1.0)
+    defs["embed/tokens"] = ParamDef((cfg.vocab, cfg.d_model),
+                                    ("vocab", "embed"), 1.0)
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab), 0.02)
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab),
+                                   ("embed", "vocab"), 0.02)
     defs.update(_norm_defs(cfg, "final_norm"))
     if cfg.vlm:
-        defs["vlm/proj"] = ParamDef((cfg.d_model, cfg.d_model), 0.02)
+        defs["vlm/proj"] = ParamDef((cfg.d_model, cfg.d_model),
+                                    ("embed", "embed2"), 0.02)
     for j, spec in enumerate(cfg.prelude):
         for k, d in _layer_defs(cfg, spec).items():
             defs[f"pre{j}/{k}"] = d
@@ -189,14 +201,16 @@ def schema(cfg: ModelCfg) -> dict[str, ParamDef]:
         for i, spec in enumerate(cfg.pattern):
             for k, d in _layer_defs(cfg, spec).items():
                 defs[f"layers/p{i}/{k}"] = ParamDef(
-                    (cfg.n_scan_periods,) + d.shape, d.scale)
+                    (cfg.n_scan_periods,) + d.shape, ("layers",) + d.axes,
+                    d.scale)
     for j in range(cfg.n_remainder):
         for k, d in _layer_defs(cfg, cfg.pattern[j % cfg.period]).items():
             defs[f"rem{j}/{k}"] = d
     if cfg.encdec:                   # whisper's encoder: dense layers, stacked
         for k, d in _layer_defs(cfg, ENC_SPEC).items():
             defs[f"enc/layers/p0/{k}"] = ParamDef(
-                (cfg.encdec.enc_layers,) + d.shape, d.scale)
+                (cfg.encdec.enc_layers,) + d.shape, ("layers",) + d.axes,
+                d.scale)
         defs.update({f"enc/{k}": d
                      for k, d in _norm_defs(cfg, "final_norm").items()})
     return defs
@@ -212,7 +226,8 @@ def keeps_f32(name: str, ndim: int) -> bool:
 
 
 def init_params(cfg: ModelCfg, gen: torch.Generator, *,
-                compute_dtype: bool = False) -> dict[str, torch.Tensor]:
+                compute_dtype: bool = False, mesh=None,
+                specs: Optional[dict] = None) -> dict[str, torch.Tensor]:
     """Random weights at the schema's scales, drawn from ``gen`` on its
     device (names in sorted order, one normal draw each).  The reference
     draws from ``jax.random``; tests load its weights through
@@ -225,27 +240,42 @@ def init_params(cfg: ModelCfg, gen: torch.Generator, *,
     of the model exists: the f32 masters of qwen3-moe-30b-a3b are 122 GB,
     and one stacked expert leaf a 38.6 GB f32 draw.  The router and the
     zero-initialised leaves (norm scales, biases) stay f32.  These are
-    other numbers than the f32 masters' draw from the same generator."""
+    other numbers than the f32 masters' draw from the same generator.
+
+    With a bound ``mesh`` and ``specs`` (``sharding.rules``) the rank makes
+    the same draws and keeps its slice of each (of each period slice), so
+    its leaves are bit for bit the slices of the one-process draw and no
+    whole leaf of the activation dtype is ever built."""
     dtype = getattr(torch, cfg.param_dtype)
     act = _act_dtype(cfg)
     dev = gen.device
+
+    def cut(x, spec):
+        return x if specs is None else A.slice_leaf(x, spec, mesh)
+
     params = {}
     for name, d in sorted(schema(cfg).items()):
+        spec = specs[name] if specs is not None else (None,) * len(d.shape)
+        shape = tuple(n // (1 if e is None else mesh.size(e))
+                      for n, e in zip(d.shape, spec))
         if d.scale == 0.0:
-            params[name] = torch.zeros(d.shape, dtype=dtype, device=dev)
+            params[name] = torch.zeros(shape, dtype=dtype, device=dev)
         elif (compute_dtype and dtype == torch.float32
               and not keeps_f32(name, len(d.shape))):
-            w = torch.empty(d.shape, dtype=act, device=dev)
+            w = torch.empty(shape, dtype=act, device=dev)
             stacked = name.startswith(("layers/", "enc/layers/"))
+            whole = d.shape[1:] if stacked else d.shape
+            sub_spec = spec[1:] if stacked else spec
             for part in (w if stacked else w[None]):
-                part.copy_(torch.randn(part.shape, generator=gen,
-                                       dtype=torch.float32,
-                                       device=dev).mul_(d.scale))
+                part.copy_(cut(torch.randn(whole, generator=gen,
+                                           dtype=torch.float32,
+                                           device=dev).mul_(d.scale), sub_spec))
             params[name] = w
         else:
             w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                             device=dev)
-            params[name] = (w.mul_(d.scale)).to(dtype)
+            w = (w.mul_(d.scale)).to(dtype)
+            params[name] = w if specs is None else cut(w, spec).clone()
     return params
 
 
@@ -258,7 +288,7 @@ def active_param_count(cfg: ModelCfg) -> int:
     total = 0
     for name, d in schema(cfg).items():
         n = math.prod(d.shape)
-        if cfg.moe and "/moe/w_" in name and "shared" not in name:
+        if cfg.moe and _is_expert(name):
             n = n * cfg.moe.top_k // cfg.moe.num_experts
         total += n
     return total
@@ -273,11 +303,49 @@ def cast_params_for_compute(cfg: ModelCfg, params: dict) -> dict:
     registry steps route on a bf16 router; its ``moe_block`` routes in f32
     and the port keeps the router f32 everywhere.)  The cast is differentiable: the train
     step's gradients reach the f32 masters through it, the bf16 cotangent
-    cast to f32 as in the reference."""
+    cast to f32 as in the reference.
+
+    Under an active mesh each cast leaf is then gathered
+    (``activation.gather_leaf`` over its ``compute_spec``), so the bytes on
+    the wire are the activation dtype's.  That gather is not
+    differentiated: the train step calls this under ``torch.no_grad`` and
+    maps the gathered copies' gradients back itself
+    (``registry.loss_and_grads``)."""
     dt = getattr(torch, cfg.activation_dtype)
-    return {k: (w.to(dt) if w.dtype == torch.float32
-                and not keeps_f32(k, w.ndim) else w)
-            for k, w in params.items()}
+    out = {k: (w.to(dt) if w.dtype == torch.float32
+               and not keeps_f32(k, w.ndim) else w)
+           for k, w in params.items()}
+    mesh = A.get_mesh()
+    if mesh is None:
+        return out
+    specs = stored_specs(cfg, mesh)
+    return {k: A.gather_leaf(w, compute_spec(k, specs[k]), mesh)
+            for k, w in out.items()}
+
+
+def stored_specs(cfg: ModelCfg, mesh) -> dict:
+    """The specs the params are stored as under ``mesh``: the registered
+    ones (``activation.set_param_specs``), else the training layout."""
+    specs = A.get_param_specs()
+    if specs is None:
+        from repro_torch.sharding import rules
+        specs = rules.param_specs(cfg, mesh)
+    return specs
+
+
+def _is_expert(name: str) -> bool:
+    return "/moe/w_" in name and "shared" not in name
+
+
+def compute_spec(name: str, spec) -> tuple:
+    """The part of a stored leaf's spec that the compute copy gathers:
+    all of it, but for the vocab tables (their vocab stays split over
+    ``model``: the logits are vocab-parallel) and the routed experts
+    (split over ``model``: expert parallelism), whose ``embed`` dim alone
+    is gathered (over ``data``), as the reference lays them out."""
+    if name in ("embed/tokens", "unembed") or _is_expert(name):
+        return tuple(None if e == "model" else e for e in spec)
+    return tuple(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -581,8 +649,27 @@ class ForwardOut(NamedTuple):
     cache: Optional[dict]
 
 
+def _vocab_parallel(mesh, vocab: int) -> bool:
+    return (mesh is not None and "model" in mesh.axis_names
+            and vocab % mesh.size("model") == 0)
+
+
 def embed_tokens(cfg, params, tokens):
-    x = params["embed/tokens"][tokens].to(_act_dtype(cfg))
+    """The token embeddings of this rank's ``tokens``.  Vocab-parallel
+    under a mesh (the reference's ``shard_map``): each model shard gathers
+    the rows it holds, masked to [lo, lo + V/model), and a (B, S, D) psum
+    over ``model`` combines them."""
+    table = params["embed/tokens"]
+    mesh = A.get_mesh()
+    if _vocab_parallel(mesh, cfg.vocab):
+        vloc = table.shape[0]
+        lo = mesh.index("model") * vloc
+        local = torch.clamp(tokens - lo, 0, vloc - 1)
+        mask = ((tokens >= lo) & (tokens < lo + vloc))[..., None]
+        vals = table[local].to(_act_dtype(cfg))
+        x = A.psum(torch.where(mask, vals, vals.new_zeros(())), "model", mesh)
+    else:
+        x = table[tokens].to(_act_dtype(cfg))
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -626,7 +713,31 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
     ``cache.build_kv_factors`` plus the per-slot compressed prefix length.
     ``last_only`` computes the logits of the last position alone, (B, 1,
     V): at S = 32768 the full (B, S, V) logits would be 10 GB.  Logits stay
-    in the activation dtype, as in the reference."""
+    in the activation dtype, as in the reference.
+
+    Under an active mesh the inputs are the global batch and the rank
+    computes its rows of it; the logits are its (B_local, S, V/model)
+    block."""
+    mesh = A.get_mesh()
+    if mesh is not None:
+        n = tokens.shape[0]
+        tokens, img_embeds, enc_embeds = (
+            None if t is None else A.local_rows(mesh, t)
+            for t in (tokens, img_embeds, enc_embeds))
+        with A.global_batch(n):
+            return _forward(cfg, params, tokens, cache=cache,
+                            write_pos=write_pos, img_embeds=img_embeds,
+                            enc_embeds=enc_embeds, return_cache=return_cache,
+                            kv_factors=kv_factors, comp_len=comp_len,
+                            last_only=last_only)
+    return _forward(cfg, params, tokens, cache=cache, write_pos=write_pos,
+                    img_embeds=img_embeds, enc_embeds=enc_embeds,
+                    return_cache=return_cache, kv_factors=kv_factors,
+                    comp_len=comp_len, last_only=last_only)
+
+
+def _forward(cfg, params, tokens, *, cache, write_pos, img_embeds,
+             enc_embeds, return_cache, kv_factors, comp_len, last_only):
     dt = _act_dtype(cfg)
     x = embed_tokens(cfg, params, tokens)
     if cfg.vlm is not None and img_embeds is not None:
@@ -654,6 +765,9 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
         x = x[:, -1:]
     x = L.apply_norm(cfg, params, "final_norm", x)
     dt = x.dtype
+    # vocab-parallel logits: each model rank's block of the vocab, from the
+    # same x (its cotangent is the sum of the blocks')
+    x = A.enter(x, "model") if _vocab_parallel(A.get_mesh(), cfg.vocab) else x
     if cfg.tie_embeddings:
         logits = x @ params["embed/tokens"].to(dt).T
     else:
@@ -666,23 +780,44 @@ def forward(cfg: ModelCfg, params: dict, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  final_softcap: float = 0.0, *, mesh=None) -> torch.Tensor:
+                  final_softcap: float = 0.0, *, mesh=None,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Masked mean cross-entropy; labels < 0 are ignored (padding).  Logits
     arrive in the activation dtype and are upcast (and softcapped) here, so
     the cotangent leaving is in that dtype, as in the reference.
 
-    This is the reference's single-card branch.  Its vocab-parallel branch
-    (the vocab sharded over a mesh's ``model`` axis) is not ported: a
-    ``mesh`` (``launch.mesh.HostMesh``) with a model axis above 1 raises."""
-    if mesh is not None and "model" in mesh.shape and mesh.size("model") > 1:
-        raise not_ported("vocab_parallel")
+    Under a mesh (``mesh``, else the active one) ``logits`` is this rank's
+    (B_local, S, V/model) block (a whole (B_local, S, V) where ``vocab``
+    does not split over ``model``) and ``labels`` its rows: the vocab-parallel
+    form (Megatron's, the reference's ``shard_map``) takes a local f32
+    logsumexp, all-gathers the (B, S) log-sum-exps over ``model`` and
+    psums the gold logit its shard owns; the mean is over the global batch
+    (``sum(nll * mask)`` and ``sum(mask)`` summed over the batch axes), the
+    same on every rank."""
+    mesh = A.get_mesh() if mesh is None else mesh
     mask = labels >= 0
     safe = torch.clamp(labels, min=0).long()
     lg = L.softcap(logits.float(), final_softcap)
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, safe[..., None])[..., 0]
+    if mesh is not None and _vocab_parallel(
+            mesh, vocab or logits.shape[-1] * mesh.size("model")):
+        vloc = lg.shape[-1]
+        lo = mesh.index("model") * vloc
+        lse = A.all_gather(torch.logsumexp(lg, dim=-1)[None], "model", 0, mesh)
+        logz = torch.logsumexp(lse, dim=0)
+        local = torch.clamp(safe - lo, 0, vloc - 1)
+        g = torch.gather(lg, -1, local[..., None])[..., 0]
+        owned = (safe >= lo) & (safe < lo + vloc)
+        gold = A.psum(torch.where(owned, g, g.new_zeros(())), "model", mesh)
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    if mesh is None:
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    ba = A.batch_axes_of(mesh)
+    count = A.all_reduce(torch.sum(mask), mesh, ba) if ba else torch.sum(mask)
+    total = A.psum(torch.sum(nll), ba, mesh) if ba else torch.sum(nll)
+    return total / torch.clamp(count, min=1)
 
 
 def loss_fn(cfg: ModelCfg, params: dict, batch: dict) -> torch.Tensor:
@@ -694,7 +829,11 @@ def loss_fn(cfg: ModelCfg, params: dict, batch: dict) -> torch.Tensor:
                   img_embeds=batch.get("img_embeds"),
                   enc_embeds=batch.get("enc_embeds"))
     labels = batch["labels"]
+    mesh = A.get_mesh()
+    if mesh is not None:
+        labels = A.local_rows(mesh, labels)
     if cfg.vlm is not None:
         pad = labels.new_full(labels.shape[:1] + (cfg.vlm.num_image_tokens,), -1)
         labels = torch.cat([pad, labels], dim=1)
-    return cross_entropy(out.logits, labels, cfg.final_softcap)
+    return cross_entropy(out.logits, labels, cfg.final_softcap,
+                         vocab=cfg.vocab)

@@ -20,8 +20,17 @@ A step ends in ``torch.cuda.synchronize`` on the card (the reference's
 ``block_until_ready``), so an asynchronous kernel failure surfaces inside
 the step's retry and every step time covers its device work.
 ``LoopState`` counts the retries and rollbacks; ``train`` returns it when
-asked.  The reference's elastic ``remesh`` waits for training across
-processes (ROADMAP Queue 1 item 16g) and raises.
+asked.
+
+Across processes (``train(..., mesh=, specs=)``, a bound ``HostMesh`` and
+the spec tree of ``(params, opt_state)``): checkpoints are collective
+(``CheckpointManager(mesh=)``), every rank resumes from the step rank 0
+finds, and after each attempt the ranks agree whether any of them failed
+or was signalled, so a retry, a rollback or an emergency save is taken by
+all together.  A rank that fails inside a collective leaves its peers
+waiting there; the world's timeout (``launch.world.run_world``, or
+``init_process_group``'s) turns that into a failure.  ``remesh`` is the
+reference's elastic re-scale onto the surviving ranks.
 """
 
 from __future__ import annotations
@@ -35,7 +44,10 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import HostMesh
+from repro_torch.sharding import activation as A
 from repro_torch.train.checkpoint import CheckpointManager
 
 log = logging.getLogger("repro_torch.train")
@@ -72,18 +84,32 @@ def _sync(tree) -> None:
             torch.cuda.synchronize(dev)
 
 
+def _any(mesh, flag: bool, like: torch.Tensor) -> bool:
+    """Whether ``flag`` holds on any rank of ``mesh`` (or this one)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=like.device)
+    return bool(A.all_reduce(t, mesh, mesh.axis_names).item())
+
+
 def train(step_fn: Callable, params: dict, opt_state, data, cfg: LoopConfig,
           *, hooks: Optional[list[Callable]] = None,
-          return_state: bool = False):
+          return_state: bool = False, mesh=None, specs=None):
     """Run the loop; returns (params, opt_state, history), and the
-    ``LoopState`` after them with ``return_state=True``."""
-    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+    ``LoopState`` after them with ``return_state=True``.  Under a ``mesh``
+    every rank runs it with its slices and ``specs`` (module docstring)."""
+    mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, mesh=mesh)
     state = LoopState()
     history: list[dict[str, Any]] = []
+    like = next(iter(params.values()))
+
+    def restore(step):
+        return mgr.restore((params, opt_state), step, mesh=mesh,
+                           specs=specs)[0]
 
     last = mgr.latest_step()
     if last is not None:
-        (params, opt_state), _ = mgr.restore((params, opt_state), last)
+        params, opt_state = restore(last)
         state.step = state.resumed_from = last
         log.info("resumed from step %d", last)
 
@@ -104,30 +130,35 @@ def train(step_fn: Callable, params: dict, opt_state, data, cfg: LoopConfig,
             batch = data.batch(state.step)
             t0 = time.perf_counter()
             for attempt in range(cfg.max_retries + 1):
+                err = None
                 try:
                     new_params, new_opt, metrics = step_fn(params, opt_state,
                                                            batch)
                     _sync(new_params)
+                except Exception as e:  # a transient failure: retry
+                    err = e
+                if not _any(mesh, err is not None, like):
                     params, opt_state = new_params, new_opt
                     stuck = False
                     break
-                except Exception as e:  # a transient failure: retry
-                    log.warning("step %d attempt %d failed: %r",
-                                state.step, attempt, e)
-                    if attempt == cfg.max_retries:
-                        mgr.wait()
-                        last = mgr.latest_step()
-                        if last is None or stuck:
-                            raise
-                        (params, opt_state), _ = mgr.restore(
-                            (params, opt_state), last)
-                        state.step = last
-                        state.rollbacks += 1
-                        stuck = True
-                        log.error("rolled back to checkpoint step %d", last)
-                        metrics = None
-                        break
-                    state.retries += 1
+                log.warning("step %d attempt %d failed: %r", state.step,
+                            attempt, err or "on another rank")
+                if attempt == cfg.max_retries:
+                    mgr.wait()
+                    last = mgr.latest_step()
+                    if last is None or stuck:
+                        if err is not None:
+                            raise err
+                        raise RuntimeError(f"step {state.step} failed on "
+                                           f"another rank")
+                    params, opt_state = restore(last)
+                    state.step = last
+                    state.rollbacks += 1
+                    stuck = True
+                    log.error("rolled back to checkpoint step %d", last)
+                    metrics = None
+                    break
+                state.retries += 1
             dt = time.perf_counter() - t0
             if metrics is None:       # rolled back: the step is run again
                 continue
@@ -149,9 +180,10 @@ def train(step_fn: Callable, params: dict, opt_state, data, cfg: LoopConfig,
             for h in hooks or ():
                 h(state.step, params, row)
             if state.step % cfg.ckpt_every == 0:
-                mgr.save(state.step, (params, opt_state))
+                mgr.save(state.step, (params, opt_state), specs=specs)
+            state.interrupted = _any(mesh, state.interrupted, like)
 
-        mgr.save(state.step, (params, opt_state), blocking=True)
+        mgr.save(state.step, (params, opt_state), blocking=True, specs=specs)
     finally:
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
@@ -161,8 +193,42 @@ def train(step_fn: Callable, params: dict, opt_state, data, cfg: LoopConfig,
     return params, opt_state, history
 
 
-def remesh(params, specs_fn, new_devices=None):
-    """The reference's elastic re-scale onto the surviving devices: not
-    ported (training across processes, ROADMAP Queue 1 item 16g)."""
-    raise NotImplementedError("remesh: training across processes (ROADMAP "
-                              "Queue 1 item 16g) is not ported yet")
+def remesh(params, specs_fn, new_ranks=None, *, mesh, device=None):
+    """Elastic re-scale (the reference's): rebuild a (n, 1) mesh over the
+    surviving ranks ``new_ranks`` (all of the world's by default) and
+    re-place every leaf by the same logical rules, ``specs_fn(mesh) ->
+    {name: spec}``.  ``params`` are this rank's slices on the bound
+    ``mesh`` they live on.
+
+    Every rank of the world calls it, those leaving or joining too: the
+    members of ``mesh`` gather each leaf; where a new rank held none, the
+    old mesh's rank 0 broadcasts it.  Returns ``(new_mesh, placed)``,
+    ``placed`` None on a rank outside the new mesh.  ``device`` places a
+    joining rank's leaves (default: the device of ``params``; a rank
+    outside ``mesh`` holds none and passes it)."""
+    world = dist.get_world_size()
+    new_ranks = list(range(world)) if new_ranks is None else list(new_ranks)
+    old_specs = specs_fn(mesh)
+    new = HostMesh((len(new_ranks), 1)).bind(ranks=new_ranks)
+    new_specs = specs_fn(new)
+    root = mesh.world_rank(0)
+    meta = [None]
+    if mesh.member and mesh.index(mesh.axis_names) == 0:
+        meta = [[(k, A.whole_shape(v.shape, old_specs[k], mesh), v.dtype)
+                 for k, v in sorted(params.items())]]
+    dist.broadcast_object_list(meta, src=root)
+    joining = any(r not in mesh.ranks for r in new_ranks)
+    if device is None:
+        device = next(iter(params.values())).device
+    placed = {}
+    for k, shape, dtype in meta[0]:
+        whole = (A.gather_leaf(params[k], old_specs[k], mesh)
+                 if mesh.member else None)
+        if joining:
+            if whole is None:
+                whole = torch.empty(shape, dtype=dtype, device=device)
+            dist.broadcast(whole, src=root)
+        if new.member:
+            placed[k] = A.shard_leaf(whole, new_specs[k], new)
+        del whole
+    return new, (placed if new.member else None)

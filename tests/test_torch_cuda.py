@@ -1187,3 +1187,97 @@ def test_encdec_vlm_prefill_and_decode_on_card_match_cpu(gen, arch):
     assert k3.launches == before + cfg.n_layers
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training and serving across processes: gloo worlds on the one card
+# ---------------------------------------------------------------------------
+
+def test_gloo_reduces_bf16_cuda_tensors(gen):
+    """gloo's all-reduce and all-gather take bf16 tensors on the card (the
+    mesh branches' psums and gathers run in the activation dtype)."""
+    from repro_torch.launch import world
+    outs = world.run_world("torch_shard_workers:gloo_dtypes_case", 2,
+                           device="cuda", timeout=120)
+    for out in outs:
+        for dt, (red, parts) in out.items():
+            assert red.tolist() == [4.0] * 5, dt
+            assert [p.tolist() for p in parts] == [[1.5] * 5, [2.5] * 5], dt
+
+
+def test_sharded_world_on_card_matches_one_process(gen):
+    """A (1, 2) gloo world on the card: qwen3-moe's smoke config with the
+    vocab-parallel loss and gradients, then the expert-parallel forward
+    with kernel 3 on, against one process (f32 activations)."""
+    import numpy as np
+
+    from repro_torch.launch import world
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(R.get_arch("qwen3-moe-30b-a3b")).with_(
+        activation_dtype="float32")
+    params = {k: v.cpu().numpy() for k, v in T.init_params(
+        cfg, torch.Generator().manual_seed(5)).items()}
+    g = torch.Generator().manual_seed(6)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=g).numpy()
+             for k in ("tokens", "labels")}
+    dev_params = {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+    want, want_g = R.loss_and_grads(cfg, dev_params, batch)
+    outs = world.run_world("torch_shard_workers:loss_grads_case", 2,
+                           device="cuda", timeout=180,
+                           kwargs=dict(sizes=(1, 2), arch="qwen3-moe-30b-a3b",
+                                       act="float32", params=params,
+                                       batch=batch))
+    loss, grads = outs[0]
+    assert loss == pytest.approx(float(want), rel=2e-5)
+    for k, w in want_g.items():
+        w = w.cpu().numpy()
+        assert np.abs(grads[k] - w).max() <= 2e-2 * np.abs(w).max() + 1e-12, k
+    kcfg = cfg.with_(use_flash_kernel=True)
+    tok = torch.from_numpy(batch["tokens"]).cuda()
+    with torch.no_grad():
+        one = T.forward(kcfg, T.cast_params_for_compute(kcfg, dev_params),
+                        tok).logits.float().cpu().numpy()
+    outs = world.run_world("torch_shard_workers:forward_case", 2,
+                           device="cuda", timeout=180,
+                           kwargs=dict(sizes=(1, 2), arch="qwen3-moe-30b-a3b",
+                                       act="float32", params=params,
+                                       tokens=batch["tokens"], flash=True))
+    for out in outs:
+        assert out["launches"] == cfg.n_layers
+        np.testing.assert_allclose(out["logits"], one, rtol=1e-5, atol=1e-5)
+
+
+def test_init_weights_mesh_slices_on_card(gen):
+    """``init_weights(mesh=)`` on the card: each rank's leaves bit for bit
+    its blocks of the one-process draw from the same CUDA generator."""
+    from repro_torch.launch import world
+    cfg = smoke_config(R.get_arch("qwen3-moe-30b-a3b"))
+    whole = launch.init_weights(cfg, seed=3, device="cuda", compute_dtype=True)
+    outs = world.run_world("torch_shard_workers:init_case", 2, device="cuda",
+                           timeout=120,
+                           kwargs=dict(sizes=(1, 2), arch="qwen3-moe-30b-a3b",
+                                       compute_dtype=True, serving=True, seed=3))
+    for out in outs:
+        m = out["index"][1]
+        for k, w in whole.items():
+            for dim, entry in enumerate(out["specs"][k]):
+                if entry == "model":
+                    n = w.shape[dim] // 2
+                    w = w.narrow(dim, m * n, n)
+            w = w.contiguous().cpu()
+            if w.dtype == torch.bfloat16:
+                w = w.view(torch.int16)
+            assert (out["w"][k] == w.numpy()).all(), k
+
+
+def test_sharded_save_holds_only_its_slices_on_the_card(gen):
+    """A collective checkpoint save in a (2, 2) gloo world on the card
+    (f32 masters and AdamW state): no rank's peak device memory grows by
+    more than its largest slice, where gathering every leaf whole would
+    add four times its state."""
+    from repro_torch.launch import world
+    outs = world.run_world("torch_shard_workers:save_peak_case", 4,
+                           device="cuda", timeout=180,
+                           kwargs=dict(sizes=(2, 2), arch="qwen3-0.6b"))
+    for out in outs:
+        assert out["grew"] <= out["largest"], out

@@ -60,13 +60,15 @@ def test_import_pulls_in_no_jax_or_reference():
 
 
 @pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data",
-                                 "core", "kernels", "optim", "train"])
+                                 "core", "kernels", "optim", "train",
+                                 "sharding"])
 def test_serving_subpackages_import_without_jax(sub):
     """Each subpackage (the serving slice's; ``stream`` with its object-store
     and resilience modules; ``data`` with the token pipelines; ``launch``
     with the mesh, the world launcher and the train launcher; ``core`` with
     the distributed layer; ``kernels`` with the autotuner; ``optim`` with
-    GaLore and compression; ``train`` with the loop and its checkpoints),
+    GaLore and compression; ``train`` with the loop and its checkpoints;
+    ``sharding`` with the specs and the mesh's collectives),
     imported on its own in a fresh interpreter, leaves 'jax' and 'repro'
     out of sys.modules."""
     code = (f"import importlib, pkgutil, sys\n"

@@ -35,11 +35,9 @@ from repro_torch.configs.base import smoke_config
 from repro_torch.convert import opt_state_from_reference, params_from_reference
 from repro_torch.data.pipeline import MemmapTokens, SyntheticLM, write_token_file
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import HostMesh
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
 from repro_torch.optim import galore
-from repro_torch.train import loop as loop_mod
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.loop import LoopConfig, train
 
@@ -104,14 +102,6 @@ def test_cross_entropy_matches_reference(cap):
     assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5,
                                atol=1e-8)
-
-
-def test_cross_entropy_vocab_parallel_not_ported():
-    lg, lb = torch.zeros((1, 2, 8)), torch.zeros((1, 2), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="16g"):
-        T.cross_entropy(lg, lb, mesh=HostMesh((1, 2)))
-    assert float(T.cross_entropy(lg, lb, mesh=HostMesh((2, 1)))) == pytest.approx(
-        np.log(8))
 
 
 def test_loss_and_grads_match_reference_f32(qwen):
@@ -471,11 +461,6 @@ def test_train_loop_emergency_save_on_sigterm(tiny, tmp_path):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-def test_remesh_not_ported():
-    with pytest.raises(NotImplementedError, match="16g"):
-        loop_mod.remesh({}, None)
-
-
 # ---------------------------------------------------------------------------
 # The launcher
 # ---------------------------------------------------------------------------
@@ -489,16 +474,6 @@ def test_launcher_runs_on_cpu(tmp_path):
         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert out.returncode == 0, out.stderr[-3000:]
     assert "done: loss" in out.stderr and (tmp_path / "step_4").exists()
-
-
-def test_launcher_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    base = ["--device", "cpu", "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="16g"):
-        launch_train.main(base + ["--model-parallel", "2"])
-    monkeypatch.setenv(launch_train.MULTI_HOST_ENV, "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="16g"):
-        launch_train.main(base)
-    assert not (tmp_path / "step_1").exists()
 
 
 def test_launcher_keeps_reference_flags():

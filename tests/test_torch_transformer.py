@@ -198,14 +198,10 @@ def test_grow_cache_pads_kv_rows_only():
 
 
 def test_training_and_windowed_decode_raise(gemma2):
-    """Training is ported (tests/test_torch_train.py); what it does not
-    cover raises: the vocab-parallel loss.  Windowed (ring) decode is
-    ported: on a cache of fewer rows than the window (a ring that never
-    wraps) it runs and matches the reference."""
-    from repro_torch.launch.mesh import HostMesh
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16g"):
-        T.cross_entropy(torch.zeros((1, 2, 8)), torch.zeros((1, 2), dtype=torch.long),
-                        mesh=HostMesh((1, 2)))
+    """Windowed (ring) decode is ported: on a cache of fewer rows than the
+    window (a ring that never wraps) it runs and matches the reference.
+    (Training, the vocab-parallel loss included, is tested in
+    tests/test_torch_train.py and tests/test_torch_sharding.py.)"""
     ref_cfg, cfg, ref_params, params = gemma2
     ref_cache = rcache.build_cache(ref_cfg, 1, 8)
     cache = C.build_cache(cfg, 1, 8, device="cpu")       # window 16 >= 8: ring
