@@ -232,6 +232,24 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    block of phase 14's, 48 launches a rank, the prefill's logits against
    14a's kernel-path logits at the bf16 gate, routed sets alike, peak
    memory, prefill and all-reduce ms; the phase within 300 s.
+19. the cell machinery and the dry run: (19a) every arch's SMOKE config
+   (``configs/<arch>.py``) through ``materialize_inputs`` + ``step_for`` on
+   the card, tests/test_arch_smoke.py's gates: a train step (finite loss,
+   params moved), five at lr 3e-3 (loss down), a (2, 32) prefill with
+   kernel 3 where the layer routes to it (12 launches in all) against the
+   plain one at the bf16 gate, a (2, 16) decode step, prefill + one decode
+   against a full forward (0.15, correlation > 0.99); (19b) the dry run
+   (``launch/dryrun.py``) of qwen3-0.6b's (1, 4096) prefill at full width
+   and depth on a (1, 1) mesh against the same step on the card: argument
+   bytes equal to the card's tensors and the allocator's requested bytes,
+   matmul FLOPs within 1 % of the profiler's, peak within 15 % of
+   ``max_memory_allocated()``'s growth; then that prefill with kernel 3 (28
+   launches) at the bf16 gate; (19c) the dry run's CLI on xlstm-350m x
+   decode_32k and command-r-plus-104b x train_4k on the 16x16 mesh
+   (subprocesses started before phase 17, each within 300 s): the rows'
+   schema, their FLOPs, collective bytes and bytes a rank against 80 GB
+   printed; ``compression_dryrun``'s wire ratio of 128; the phase within
+   120 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -5428,6 +5446,355 @@ def phase18_sharded(torch, dev, card, moe_ref: dict) -> dict:
     return out
 
 
+# Phase 19: the cell machinery and the dry run.  19a: every arch's smoke
+# config through materialize_inputs + step_for (tests/test_arch_smoke.py's
+# shapes and gates); 19b: the dry run of qwen3-0.6b's (1, 4096) prefill on a
+# (1, 1) mesh held against the same step on the card; 19c: the dry run's CLI
+# on two production cells (started in the background before phase 17, since
+# command-r-plus-104b's train cell traces for about two minutes on one host
+# core) and compression_dryrun.
+CELL_TRAIN, CELL_PREFILL, CELL_DECODE = (32, 2), (32, 2), (16, 2)   # (seq, batch)
+CELL_LR, CELL_LOSS_STEPS, CELL_LOSS_LR = 1e-3, 5, 3e-3
+CELL_DECODE_TOL, CELL_DECODE_CORR = 0.15, 0.99   # tests/test_arch_smoke.py
+DRY_PREFILL = (4096, 1)                          # 19b: (seq, batch)
+DRY_FLOPS_REL, DRY_PEAK_REL = 0.01, 0.15
+DRY_CLI_CELLS = (("xlstm-350m", "decode_32k"), ("command-r-plus-104b", "train_4k"))
+DRY_CLI_TIMEOUT = 300.0
+DRY_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+PHASE19_LIMIT_S = 120.0
+
+
+class DryRunCells:
+    """19c's dry-run CLI calls, one subprocess a cell, started together in
+    the background; ``collect`` waits for them (each within
+    ``DRY_CLI_TIMEOUT`` of its start) and ``stop`` kills any still
+    running.  A cell's wall runs from the start to its row file's write,
+    the process's last act."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        self.dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TORCH_DRYRUN_DIR=str(self.dir))
+        self.procs = {}
+        for arch, shape in DRY_CLI_CELLS:
+            log = open(self.dir / f"{arch}__{shape}.log", "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "single"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+            self.procs[(arch, shape)] = (proc, log, time.time())
+
+    def collect(self) -> dict:
+        out = {}
+        for (arch, shape), (proc, log, t0) in self.procs.items():
+            left = max(1.0, DRY_CLI_TIMEOUT - (time.time() - t0))
+            try:
+                rc = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                rc = None
+            log.close()
+            text = (self.dir / f"{arch}__{shape}.log").read_text()
+            check(rc == 0, f"19c: dryrun {arch} x {shape} "
+                  f"{'timed out' if rc is None else f'exited {rc}'} after "
+                  f"{time.time() - t0:.1f} s: {text[-2000:]}")
+            path = self.dir / f"{arch}__{shape}__16x16.json"
+            out[(arch, shape)] = {"row": json.loads(path.read_text()),
+                                  "wall_s": path.stat().st_mtime - t0}
+        return out
+
+    def stop(self) -> None:
+        import shutil
+        for proc, log, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cell_shape(kind: str, seq_batch):
+    from repro_torch.configs.base import ShapeCfg
+    return ShapeCfg(f"smoke_{kind}", kind, seq_batch[0], seq_batch[1])
+
+
+def phase19_cells(torch, dev, card, dry_cli: DryRunCells) -> dict:
+    """Phase 19: (19a) every arch's SMOKE through materialize_inputs +
+    step_for on the card; (19b) the dry run against the card on
+    qwen3-0.6b's (1, 4096) prefill, then that prefill through kernel 3;
+    (19c) the dry run's CLI rows and compression_dryrun."""
+    t_phase = time.perf_counter()
+    out = {"19a": phase19a_smoke(torch, dev, card)}
+    out["19b"] = phase19b_dryrun_vs_card(torch, dev, card)
+    out["19c"] = phase19c_cli(torch, card, dry_cli)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[cells] phase 19 took {out['seconds']:.1f} s (19a "
+          f"{out['19a']['seconds']:.1f} s, 19b {out['19b']['seconds']:.1f} s, "
+          f"19c {out['19c']['seconds']:.1f} s waiting)")
+    check(out["seconds"] <= PHASE19_LIMIT_S,
+          f"phase 19 took {out['seconds']:.1f} s > {PHASE19_LIMIT_S} s")
+    return out
+
+
+def phase19a_smoke(torch, dev, card) -> dict:
+    """tests/test_arch_smoke.py on the card, through the registry's cell
+    machinery: for every arch's SMOKE config (bf16 activations), one train
+    step (finite loss, params moved), five at lr 3e-3 (loss down), a prefill
+    with use_flash_kernel (kernel 3 where the layer routes to it) against
+    the plain one at the bf16 gate, a decode step, and prefill + one decode
+    against the full forward (0.15, correlation > 0.99)."""
+    import importlib
+    import pkgutil
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.models import cache as C
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    train, prefill, decode = (cell_shape("train", CELL_TRAIN),
+                              cell_shape("prefill", CELL_PREFILL),
+                              cell_shape("decode", CELL_DECODE))
+    launches, rows = 0, {}
+    modules = [importlib.import_module(f"repro_torch.configs.{m.name}")
+               for m in pkgutil.iter_modules(configs.__path__)]
+    by_arch = {m.CONFIG.name: m for m in modules if hasattr(m, "SMOKE")}
+    check(sorted(by_arch) == sorted(R.ARCHS),
+          f"19a: configs/<arch>.py modules {sorted(by_arch)}")
+    for arch in sorted(R.ARCHS):
+        mod = by_arch[arch]
+        cfg = mod.SMOKE
+        check(mod.CONFIG is R.get_arch(arch), f"19a: configs module of {arch}")
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        # one train step
+        batch = R.materialize_inputs(cfg, train, 1)
+        step = R.step_for(cfg, train, lr=CELL_LR)
+        p2, _, m = step(params, step.init_opt(params), batch)
+        loss = float(m["loss"])
+        moved = any(bool((p2[k] != params[k]).any()) for k in params)
+        check(math.isfinite(loss) and loss > 0 and math.isfinite(float(m["grad_norm"]))
+              and moved, f"19a {arch}: train step loss {loss}, moved {moved}")
+        # the loss goes down over five steps
+        batch = R.materialize_inputs(cfg, train, 2)
+        step = R.step_for(cfg, train, lr=CELL_LOSS_LR)
+        p, opt, losses = params, step.init_opt(params), []
+        for _ in range(CELL_LOSS_STEPS):
+            p, opt, m = step(p, opt, batch)
+            losses.append(float(m["loss"]))
+        check(losses[-1] < losses[0], f"19a {arch}: losses {losses}")
+        del p, opt, p2
+        with torch.no_grad():
+            # prefill: kernel 3 where the layer routes to it, against plain
+            batch = R.materialize_inputs(cfg, prefill, 3)
+            kcfg = cfg.with_(use_flash_kernel=True)
+            routed = sum(1 for sp in cfg.layer_specs() if sp.mixer == "attn"
+                         and sp.window is None and cfg.attn_softcap == 0.0)
+            k3.launches = 0
+            got, _ = R.step_for(kcfg, prefill)(params, batch)
+            torch.cuda.synchronize()
+            n = k3.launches
+            launches += n
+            want, _ = R.step_for(cfg, prefill)(params, batch)
+            ok, msg = logits_agree(torch, got, want, "bfloat16", SERVE_TOL)
+            check(tuple(got.shape) == (prefill.global_batch, cfg.vocab)
+                  and bool(torch.isfinite(got).all()) and ok and n == routed,
+                  f"19a {arch}: prefill kernel 3 launches {n} (want {routed}), {msg}")
+            # a decode step on a random cache
+            batch = R.materialize_inputs(cfg, decode, 4)
+            cache_shapes = [tuple(t.shape) for t in tree_tensors(batch["cache"])]
+            logits, cache = R.step_for(cfg, decode)(params, batch)
+            check(tuple(logits.shape) == (decode.global_batch, cfg.vocab)
+                  and bool(torch.isfinite(logits).all())
+                  and [tuple(t.shape) for t in tree_tensors(cache)] == cache_shapes,
+                  f"19a {arch}: decode step")
+            # prefill S then one decode step against a full forward over S + 1
+            b, s = decode.global_batch, decode.seq_len
+            gen = torch.Generator(device=dev).manual_seed(5)
+            tok = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                                device=dev, dtype=torch.int32)
+            extra = {}
+            if cfg.vlm:
+                extra["img_embeds"] = 0.01 * torch.randn(
+                    (b, cfg.vlm.num_image_tokens, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+            if cfg.encdec:
+                extra["enc_embeds"] = 0.01 * torch.randn(
+                    (b, cfg.encdec.enc_seq, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+            cast = T.cast_params_for_compute(cfg, params)
+            full = R._final_logits(cfg, T.forward(cfg, cast, tok, **extra).logits[:, -1])
+            _, pcache = R.make_prefill_step(cfg)(params, {"tokens": tok[:, :s], **extra})
+            n_img = cfg.vlm.num_image_tokens if cfg.vlm else 0
+            dec, _ = R.make_serve_step(cfg)(params, {
+                "tokens": tok[:, s:], "cache": C.grow_cache(pcache, 1, cfg),
+                "write_pos": s + n_img})
+            diff = (dec - full).abs().max().item()
+            corr = torch.corrcoef(torch.stack([dec.ravel(), full.ravel()]))[0, 1].item()
+            check(bool(torch.allclose(dec, full, rtol=CELL_DECODE_TOL,
+                                      atol=CELL_DECODE_TOL))
+                  and corr > CELL_DECODE_CORR,
+                  f"19a {arch}: prefill + decode vs full forward max|d| {diff:.3e} "
+                  f"corr {corr:.5f}")
+        rows[arch] = {"loss": loss, "losses": losses, "launches": n,
+                      "decode_max_abs": diff, "decode_corr": corr}
+        print(f"[cells] 19a {arch} SMOKE ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): train loss {loss:.4f}, 5 steps at lr "
+              f"{CELL_LOSS_LR} {losses[0]:.4f} -> {losses[-1]:.4f}; prefill "
+              f"kernel 3 launches {n} vs plain: {msg}; decode {tuple(logits.shape)}; "
+              f"prefill + decode vs full forward max|d| {diff:.3e} corr "
+              f"{corr:.5f} [{card}]")
+        del params, cast, pcache
+    out = {"archs": rows, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"[cells] 19a: {len(rows)} archs, kernel 3 launches {launches} in "
+          f"the prefills; {out['seconds']:.1f} s")
+    return out
+
+
+def profiler_matmul_flops(torch, fn) -> float:
+    """The FLOPs torch.profiler's with_flops gives the matrix products of
+    one call of ``fn`` (its elementwise aten::mul / aten::add counts left
+    out: the dry run counts products)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return float(sum(e.flops for e in prof.key_averages() if e.key in DRY_MATMULS))
+
+
+def phase19b_dryrun_vs_card(torch, dev, card) -> dict:
+    """qwen3-0.6b at full width and depth, prefill of (1, 4096): the dry
+    run on a (1, 1) mesh, then the same step on the card on the plain
+    path.  The dry run's argument bytes equal the bytes of the weights and
+    inputs the card holds and the growth of the caching allocator's
+    requested bytes from placing them; memory_allocated() counts the
+    allocator's blocks, which round a large tensor up to its 2 MiB segment
+    where less than 1 MiB would be left over (the 593.5 MiB f32 embedding
+    takes a 594 MiB block), so its growth is held between the bytes and
+    the bytes plus 1 MiB a tensor.  Its matmul FLOPs are within 1 % of the
+    profiler's; its peak (arguments + the step's own live bytes) within
+    15 % of max_memory_allocated()'s growth.  Then the prefill with kernel
+    3 (a launch a layer) at the bf16 gate against the plain one."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = R.get_arch(ARCH)
+    shape = cell_shape("prefill", DRY_PREFILL)
+    dry = DR.run_cell(cfg, shape, HostMesh((1, 1)), probe=False)
+    mem = dry["memory"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = R.materialize_inputs(cfg, shape, 0)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+    leaves = list(params.values()) + tree_tensors(batch)
+    raw = sum(t.numel() * t.element_size() for t in leaves)
+    step = R.step_for(cfg, shape)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        want, cache = step(params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del cache
+        t_plain = median_ms(torch, lambda: step(params, batch))
+        prof_flops = profiler_matmul_flops(torch, lambda: step(params, batch))
+        kstep = R.step_for(cfg.with_(use_flash_kernel=True), shape)
+        k3.launches = 0
+        got, _ = kstep(params, batch)
+        torch.cuda.synchronize()
+        launches = k3.launches
+        t_kernel = median_ms(torch, lambda: kstep(params, batch))
+    ok, msg = logits_agree(torch, got, want, "bfloat16", SERVE_TOL)
+    flops_rel = abs(dry["flops"] - prof_flops) / prof_flops
+    peak_rel = abs(mem["peak_bytes"] - peak) / peak
+    print(f"[cells] 19b dry run {ARCH} prefill {DRY_PREFILL[1]} x "
+          f"{DRY_PREFILL[0]} on a (1, 1) mesh: traced in {dry['lower_s']} s; "
+          f"argument bytes {mem['argument_bytes']} (params "
+          f"{mem['arguments']['params']}, inputs {mem['arguments']['inputs']}) "
+          f"vs the card's tensors {raw} B, the allocator's requested bytes' "
+          f"growth {requested} B, memory_allocated() growth {placed} B "
+          f"(blocks); matmul FLOPs {dry['flops']:.6e} "
+          f"vs profiler {prof_flops:.6e} (rel {flops_rel:.2e}); peak "
+          f"{mem['peak_bytes'] / 2**30:.3f} GiB (argument "
+          f"{mem['argument_bytes'] / 2**30:.3f} + temp "
+          f"{mem['temp_bytes'] / 2**30:.3f} + output "
+          f"{(mem['output_bytes'] - mem['alias_bytes']) / 2**30:.3f}) vs "
+          f"max_memory_allocated() growth {peak / 2**30:.3f} GiB (rel "
+          f"{peak_rel:.3f}); op bytes {dry['bytes']:.4e} [{card}]")
+    print(f"[cells] 19b the same prefill with kernel 3: launches {launches}, "
+          f"{t_kernel:.3f} ms vs plain {t_plain:.3f} ms (median of {REPS}); "
+          f"logits vs plain: {msg} [{card}]")
+    check(mem["argument_bytes"] == raw == requested
+          and raw <= placed <= raw + len(leaves) * 2**20,
+          f"19b: argument bytes {mem['argument_bytes']} vs card {raw}, "
+          f"requested {requested}, blocks {placed}")
+    check(flops_rel <= DRY_FLOPS_REL, f"19b: FLOPs off by {flops_rel:.3e}")
+    check(peak_rel <= DRY_PEAK_REL, f"19b: peak off by {peak_rel:.3f}")
+    check(launches == cfg.n_layers, f"19b: kernel 3 launches {launches}")
+    check(ok, f"19b: kernel 3 logits vs plain: {msg}")
+    del params, batch, got, want
+    return {"dry": {k: dry[k] for k in ("flops", "bytes", "memory", "lower_s")},
+            "card": {"tensor_bytes": raw, "requested_bytes": requested,
+                     "placed_bytes": placed, "peak_bytes": peak,
+                     "profiler_flops": prof_flops, "plain_ms": t_plain,
+                     "kernel_ms": t_kernel},
+            "flops_rel": flops_rel, "peak_rel": peak_rel, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase19c_cli(torch, card, dry_cli: DryRunCells) -> dict:
+    """The dry run's CLI rows of DRY_CLI_CELLS (the schema
+    tests/test_dryrun_cell.py asserts; the fit against one H100's 80 GB a
+    rank printed, not asserted) and compression_dryrun's ratio."""
+    from repro_torch.launch import compression_dryrun
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import HBM_BYTES
+
+    t0 = time.perf_counter()
+    cells = dry_cli.collect()
+    waited = time.perf_counter() - t0
+    out = {}
+    for (arch, shape), got in cells.items():
+        row, mem = got["row"], got["row"]["memory"]
+        coll = row["collective_bytes"]
+        fits = mem["peak_bytes"] <= HBM_BYTES
+        print(f"[cells] 19c dryrun {arch} x {shape} x 16x16 ({row['devices']} "
+              f"ranks, micro_batches {row['micro_batches']}): flops "
+              f"{row['flops']:.4e} a rank, probe {row['probe'].get('global_flops', 0):.4e}; "
+              f"collective bytes " + ", ".join(f"{k} {v:.4e}" for k, v in coll.items())
+              + f"; argument {mem['argument_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_bytes'] / 1e9:.3f} GB, peak {mem['peak_bytes'] / 1e9:.3f} "
+              f"GB a rank against {HBM_BYTES / 1e9:.0f} GB: "
+              f"{'fits' if fits else 'does not fit'}; traced {row['lower_s']} s, "
+              f"process wall {got['wall_s']:.1f} s [{card}]")
+        check(row["devices"] == 256 and row["flops"] and row["flops"] > 0
+              and row["probe"].get("global_flops", 0) > 0
+              and set(coll) == set(DR.COLLECTIVES)
+              and mem["argument_bytes"] > 0, f"19c: {arch} x {shape} row schema")
+        out[f"{arch} x {shape}"] = {
+            "flops": row["flops"], "probe_flops": row["probe"]["global_flops"],
+            "collective_bytes": coll, "memory": mem, "fits_80gb": fits,
+            "lower_s": row["lower_s"], "wall_s": got["wall_s"]}
+    rows = compression_dryrun.main()
+    ratio = rows[0][1] / rows[1][1]
+    check(ratio == 128, f"19c: compression wire ratio {ratio} != 128")
+    out["compression_ratio"] = ratio
+    out["seconds"] = waited
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5857,15 +6224,25 @@ def run(torch) -> int:
     torch.cuda.empty_cache()
     rec16 = phase16_recurrent(torch, dev, card)
 
-    # -- 17. enc-dec and VLM: whisper-large-v3, llava-next-34b (69 GB) -----
-    gc.collect()
-    torch.cuda.empty_cache()
-    encdec17 = phase17_encdec_vlm(torch, dev, card)
+    # -- 19c's dry runs start here, in the background (host cores only) ---
+    dry_cli = DryRunCells()
+    try:
+        # -- 17. enc-dec and VLM: whisper-large-v3, llava-next-34b (69 GB) -
+        gc.collect()
+        torch.cuda.empty_cache()
+        encdec17 = phase17_encdec_vlm(torch, dev, card)
 
-    # -- 18. training and serving across processes (gloo worlds) ----------
-    gc.collect()
-    torch.cuda.empty_cache()
-    shard18 = phase18_sharded(torch, dev, card, moe14.pop("world_ref"))
+        # -- 18. training and serving across processes (gloo worlds) ------
+        gc.collect()
+        torch.cuda.empty_cache()
+        shard18 = phase18_sharded(torch, dev, card, moe14.pop("world_ref"))
+
+        # -- 19. the cell machinery and the dry run -----------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        cells19 = phase19_cells(torch, dev, card, dry_cli)
+    finally:
+        dry_cli.stop()
 
     kernels = []
     for name, source, replaces, errkey in (
@@ -5922,7 +6299,9 @@ def run(torch) -> int:
                                                 "17b": encdec17["17b"]["launches"]},
                                    **encdec17["17c"]},
                     "sharded": {"arch": MOE_ARCH, "world": SHARD_SERVE_WORLD,
-                                "launches": {"18b": shard18["18b"]["launches"]}}})
+                                "launches": {"18b": shard18["18b"]["launches"]}},
+                    "cells": {"launches": {"19a": cells19["19a"]["launches"],
+                                           "19b": cells19["19b"]["launches"]}}})
     fdec = times8["factored_decode"]["per_state"]
     kernels.append({"name": "factored_decode", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/factored_decode.cu",

@@ -102,15 +102,15 @@ class ModelCfg:
     param_dtype: str = "float32"
     activation_dtype: str = "bfloat16"
     attn_chunk: int = 1024         # q-chunk for blockwise attention
-    remat: bool = True
-    # Cost-probe mode: python-unroll the layer scan (and single-chunk
-    # attention) so lowered.cost_analysis() sees every FLOP — compiled
-    # cost_analysis counts while bodies only once (verified; see dryrun.py).
+    remat: bool = True             # the reference's; the port keeps no remat
+    # The reference's cost-probe mode (its XLA dry run unrolls the layer
+    # scan so cost analysis sees every FLOP).  The port runs every layer
+    # eagerly and its dry run (launch/dryrun.py) counts each product as it
+    # runs, so nothing reads this flag there.
     unroll_scans: bool = False
-    # TPU deployment path: causal flash-attention Pallas kernel (triangular
-    # block grid — skips the masked half of the work).  Off for the dry-run
-    # probe: Pallas custom calls are opaque to HLO cost analysis, which
-    # would undercount the roofline compute term.
+    # Causal flash attention through kernel 3 (csrc/flash_attention.cu) in
+    # the serving steps.  Off in the configs, so the dry run traces the
+    # plain attention, as the reference's dry run lowers it.
     use_flash_kernel: bool = False
 
     # whether attention is sub-quadratic end-to-end (pure local/recurrent) —

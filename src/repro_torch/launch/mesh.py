@@ -1,5 +1,5 @@
 """Host meshes over ``torch.distributed`` (port of ``repro/launch/mesh.py``:
-``make_host_mesh``).
+``make_host_mesh``, ``make_production_mesh`` and the roofline constants).
 
 A :class:`HostMesh` names its axes (``("data", "model")`` by default) and
 their sizes.  Unbound, it is names and sizes only: what the single-controller
@@ -17,8 +17,13 @@ a leaf sharded over both) run in.
 The caller chooses the backend when it starts the world (``gloo`` or
 ``nccl``); nothing here switches one for the other.  NCCL puts one rank on
 one card, so a world of more NCCL ranks than cards is refused
-(:func:`check_backend`).  ``make_production_mesh`` waits for the training
-slice.
+(:func:`check_backend`).
+
+``make_production_mesh`` gives the reference's production cells, unbound:
+(16, 16) over ("data", "model") and, for the multi-pod dry run, (2, 16, 16)
+over ("pod", "data", "model").  The dry run (``launch/dryrun.py``) binds
+one to a fake world of its size.  The roofline constants below are one
+H100 SXM's (NVIDIA's data sheet), not the reference's TPU v5e's.
 """
 
 from __future__ import annotations
@@ -201,6 +206,14 @@ class HostMesh:
         return self._ranks[mesh_rank]
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The reference's production mesh as an unbound ``HostMesh``: 256
+    ranks as (data 16, model 16), or 512 as (pod 2, data 16, model 16)."""
+    if multi_pod:
+        return HostMesh((2, 16, 16), ("pod", "data", "model"))
+    return HostMesh((16, 16), ("data", "model"))
+
+
 def make_host_mesh(model_parallel: int = 1) -> HostMesh:
     """A (data, model) mesh over the current world (bound), or over one
     process where no world is initialized (unbound, 1 x 1).  A
@@ -212,3 +225,12 @@ def make_host_mesh(model_parallel: int = 1) -> HostMesh:
     if n % model_parallel:
         model_parallel = 1
     return HostMesh((n // model_parallel, model_parallel)).bind()
+
+
+# Hardware constants for the roofline model: one NVIDIA H100 SXM (NVIDIA's
+# data sheet, dense rates, at the full 700 W power limit; a card set below
+# it, as nvidia-smi's power.limit shows, runs slower under load).
+PEAK_BF16_FLOPS = 989e12      # FLOP/s, bf16 tensor cores, dense
+HBM_BW = 3.35e12              # B/s, device memory
+NVLINK_BW = 450e9             # B/s each way to the other cards of the host
+HBM_BYTES = 80e9              # 80 GB of device memory

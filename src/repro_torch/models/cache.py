@@ -88,6 +88,15 @@ def build_cache(cfg: ModelCfg, batch: int, seq: int, *, device=None) -> dict:
         _zeros(device))
 
 
+def abstract_cache(cfg: ModelCfg, batch: int, seq: int) -> dict:
+    """The cache ``build_cache`` gives, as meta tensors: the reference's
+    leaf names, shapes and dtypes, nothing allocated (the dry run's
+    stand-ins, as the reference's ``ShapeDtypeStruct`` cache)."""
+    return _build_layer_trees(
+        cfg, lambda spec: _layer_cache_defs(cfg, spec, batch, seq),
+        lambda shape, dt: torch.empty(shape, dtype=dt, device="meta"))
+
+
 def _factor_defs(cfg: ModelCfg, spec: LayerSpec, batch: int, seq: int,
                  rank: int) -> dict:
     """Factored-KV leaf defs for one layer — only full-context attention

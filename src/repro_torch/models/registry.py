@@ -3,19 +3,23 @@
 
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
 plain functions; PyTorch runs them eagerly, so there is nothing to jit.
-The reference's abstract input specs (``input_specs``,
-``materialize_inputs``, ``step_for``) serve its XLA dry-run and are not
-ported (ROADMAP Queue 1 item 17).
+``input_specs(cfg, shape)`` gives every model input of a shape cell as a
+meta tensor (the dry run, ``launch/dryrun.py``, makes its fake tensors from
+them); ``materialize_inputs`` draws concrete ones of the same tree, shapes
+and dtypes; ``step_for`` picks the cell's step.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.archs import ARCHS
-from repro_torch.configs.base import ModelCfg, smoke_config
+from repro_torch.configs.base import ModelCfg, ShapeCfg, shapes_for, smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models import cache as cache_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import softcap
 from repro_torch.optim import optimizers as opt_mod
@@ -27,6 +31,79 @@ def get_arch(name: str) -> ModelCfg:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]
 
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelCfg, shape: ShapeCfg) -> dict:
+    """The inputs of one (arch x shape) cell as meta tensors: the
+    reference's keys, shapes and dtypes (int32 ids, bf16 stub embeddings;
+    decode's one new token, its seq_len cache and a scalar ``write_pos``)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        text = s - (cfg.vlm.num_image_tokens if cfg.vlm else 0)
+        specs = {"tokens": _meta((b, text), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, text), torch.int32)
+        if cfg.vlm:
+            specs["img_embeds"] = _meta((b, cfg.vlm.num_image_tokens,
+                                         cfg.d_model), torch.bfloat16)
+        if cfg.encdec:
+            specs["enc_embeds"] = _meta((b, cfg.encdec.enc_seq, cfg.d_model),
+                                        torch.bfloat16)
+        return specs
+    return {"tokens": _meta((b, 1), torch.int32),
+            "cache": cache_mod.abstract_cache(cfg, b, s),
+            "write_pos": _meta((), torch.int32)}
+
+
+def _map_leaves(fn, tree, path=()):
+    """``fn(name, leaf)`` over a tree of dicts and tuples, ``name`` the
+    leaf's path joined by ``/`` (the reference's key path: dict keys and
+    sequence indices); None stays None."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn("/".join(str(p) for p in path), tree)
+
+
+def materialize_inputs(cfg: ModelCfg, shape: ShapeCfg, seed: int, *,
+                       device=None) -> dict:
+    """Concrete random inputs matching ``input_specs``, on the card unless
+    ``device="cpu"``.  Each leaf draws from its own ``torch.Generator``
+    seeded from ``seed`` and ``zlib.crc32`` of its path, as the reference
+    folds the crc into its key: ids uniform in [0, vocab), ``write_pos`` =
+    seq_len - 1, floats 0.01 * N(0, 1) in the leaf's dtype.  These are not
+    the reference's threefry draws."""
+    dev = resolve_device(device)
+
+    def make(name, spec):
+        gen = torch.Generator(device=dev).manual_seed(
+            (int(seed) << 31) + zlib.crc32(name.encode()) % 2**31)
+        if spec.dtype == torch.int32:
+            if "write_pos" in name:
+                return torch.tensor(shape.seq_len - 1, dtype=torch.int32,
+                                    device=dev)
+            return torch.randint(0, cfg.vocab, tuple(spec.shape),
+                                 generator=gen, dtype=torch.int32, device=dev)
+        x = torch.randn(tuple(spec.shape), generator=gen, device=dev)
+        return 0.01 * x.to(spec.dtype)
+
+    return _map_leaves(make, input_specs(cfg, shape))
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelCfg, optimizer="adamw", lr: float = 3e-4,
                     micro_batches: int = 1) -> Callable:
@@ -204,5 +281,16 @@ def make_serve_step(cfg: ModelCfg) -> Callable:
     return step
 
 
-__all__ = ["ARCHS", "get_arch", "smoke_config", "make_train_step",
-           "make_prefill_step", "make_serve_step"]
+def step_for(cfg: ModelCfg, shape: ShapeCfg, **kw) -> Callable:
+    """The cell's step: train (``kw`` go to ``make_train_step``), prefill
+    or decode."""
+    if shape.kind == "train":
+        return make_train_step(cfg, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg)
+    return make_serve_step(cfg)
+
+
+__all__ = ["ARCHS", "get_arch", "shapes_for", "smoke_config", "input_specs",
+           "materialize_inputs", "make_train_step", "make_prefill_step",
+           "make_serve_step", "step_for"]

@@ -279,6 +279,15 @@ def init_params(cfg: ModelCfg, gen: torch.Generator, *,
     return params
 
 
+def abstract_params(cfg: ModelCfg) -> dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor of the schema's shape in
+    ``cfg.param_dtype``: the reference's ``ShapeDtypeStruct`` stand-ins,
+    nothing allocated."""
+    dtype = getattr(torch, cfg.param_dtype)
+    return {name: torch.empty(d.shape, dtype=dtype, device="meta")
+            for name, d in schema(cfg).items()}
+
+
 def param_count(cfg: ModelCfg) -> int:
     return sum(math.prod(d.shape) for d in schema(cfg).values())
 

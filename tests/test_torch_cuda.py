@@ -1281,3 +1281,55 @@ def test_sharded_save_holds_only_its_slices_on_the_card(gen):
                            kwargs=dict(sizes=(2, 2), arch="qwen3-0.6b"))
     for out in outs:
         assert out["grew"] <= out["largest"], out
+
+
+# -- the cell machinery and the dry run ------------------------------------
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", sorted(R.ARCHS))
+def test_materialize_inputs_and_step_for_on_card(gen, arch, kind):
+    """``materialize_inputs`` lands on the card by default (the same seed
+    the same bits, ids in [0, vocab)), and the cell's ``step_for`` step runs
+    there on the smoke config: finite outputs of the cell's shapes."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(R.get_arch(arch))
+    shape = ShapeCfg("s", kind, 16 if kind == "decode" else 32, 2)
+    batch = R.materialize_inputs(cfg, shape, 1)
+    again = R.materialize_inputs(cfg, shape, 1)
+    for k in ("tokens", "write_pos"):
+        if k in batch:
+            assert batch[k].device.type == "cuda" and torch.equal(batch[k], again[k])
+    assert 0 <= int(batch["tokens"].min()) and int(batch["tokens"].max()) < cfg.vocab
+    params = T.init_params(cfg, gen)
+    step = R.step_for(cfg, shape)
+    if kind == "train":
+        _, _, m = step(params, step.init_opt(params), batch)
+        assert math.isfinite(float(m["loss"])) and float(m["loss"]) > 0
+        return
+    with torch.no_grad():
+        logits, _ = step(params, batch)
+    assert tuple(logits.shape) == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+
+
+def test_dryrun_argument_bytes_are_the_cards_tensors(gen):
+    """A (1, 1) dry run of the smoke qwen3 prefill: its argument bytes are
+    the bytes of the weights and inputs the same step holds on the card,
+    and its matmul FLOPs FlopCounterMode's on the card's run."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import transformer as T
+    cfg = smoke_config(R.get_arch("qwen3-0.6b"))
+    shape = ShapeCfg("s", "prefill", 32, 2)
+    row = DR.run_cell(cfg, shape, HostMesh((1, 1)), probe=False)
+    params = T.init_params(cfg, gen)
+    batch = R.materialize_inputs(cfg, shape, 0)
+    held = sum(t.numel() * t.element_size()
+               for t in list(params.values()) + list(batch.values()))
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        R.step_for(cfg, shape)(params, batch)
+    assert row["memory"]["argument_bytes"] == held
+    assert row["flops"] == fc.get_total_flops()

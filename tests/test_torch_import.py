@@ -22,7 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune, ops, shgemm_fused as kf
 from repro_torch.launch import world
 from repro_torch.launch.mesh import HostMesh
-from repro_torch.configs.base import smoke_config
+from repro_torch.configs.base import ShapeCfg, smoke_config
 from repro_torch.launch import serve as launch
 from repro_torch.launch import train as launch_train
 from repro_torch.models import cache as cache_mod, registry as R
@@ -87,7 +87,10 @@ def test_serving_subpackages_import_without_jax(sub):
                                     "repro_torch.serve.loadgen",
                                     "repro_torch.serve.metrics",
                                     "repro_torch.stream.rolling",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.dump_collectives",
+                                    "repro_torch.launch.compression_dryrun"])
 def test_scheduler_slice_modules_import_without_jax(module):
     """The open-loop serving slice's modules, each imported alone in a fresh
     interpreter, load no jax and nothing of the reference."""
@@ -116,6 +119,24 @@ def test_moe_module_imports_without_jax():
                              text=True, cwd=REPO, timeout=120,
                              env={**os.environ, "PYTHONPATH": str(REPO / "src")})
         assert out.returncode == 0, (module, out.stderr)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.dump_collectives",
+                                    "repro_torch.launch.compression_dryrun"])
+def test_dryrun_modules_set_no_environment_variable(module):
+    """The dry-run tools, imported alone in a fresh interpreter, leave the
+    environment as they found it (the reference's set ``XLA_FLAGS`` at
+    import, a need of jax alone) and load no jax."""
+    code = (f"import os, sys\n"
+            f"before = dict(os.environ)\n"
+            f"import {module}\n"
+            f"assert dict(os.environ) == before\n"
+            f"assert 'jax' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -222,6 +243,8 @@ ENTRY_POINTS = {
          "--slots", "1", "--max-seq", "16", "--prompt-len", "4",
          "--max-new", "2", "--kv-rank", "4"]
         + (["--device", d["device"]] if d else [])),
+    "materialize_inputs": lambda **d: R.materialize_inputs(
+        _SMOKE, ShapeCfg("s", "decode", 4, 1), 0, **d),
     "launch.train": lambda **d: launch_train.main(
         ["--smoke", "--steps", "1", "--seq", "8", "--global-batch", "2",
          "--ckpt-dir", tempfile.mkdtemp()]
