@@ -250,6 +250,25 @@ exits non-zero at the first failed check.  Phases, each printing its lines:
    schema, their FLOPs, collective bytes and bytes a rank against 80 GB
    printed; ``compression_dryrun``'s wire ratio of 128; the phase within
    120 s.
+20. the examples and the contract checker: (20a) the seven
+   ``repro_torch.examples`` through their ``main(argv)`` on the card, each
+   one's numbers, seconds and kernel launches (counts set to 0 before
+   20a): quickstart (kernels 1 and 2 launch; every method but
+   ``lowp_single`` within 1.5x f32's residual + 1e-7), hosvd_compression
+   (error below the 1e-4 noise from the true rank 12 up), embedding_compression
+   at its defaults and at qwen3-0.6b's 151936 x 1024 table (error falling
+   with rank, agreement at rank 128 above rank 16's), galore_training
+   (both losses fall, GaLore's state below AdamW's), train_lm ``--preset
+   100m --steps 20`` (its loss falls), serve_llm three ways (every request
+   served; ``--kv-rank 4 --kv-compress-ratio 2`` swaps every slot; the
+   scheduler's SLO summary counts every request), distributed_rsvd in a
+   (4, 2) gloo world (sigma within 1e-4 of the one-process rSVD); (20b)
+   ``python -m repro_torch.analysis`` in a subprocess (started at the
+   phase's start, 300 s) exits 0 under the port's baseline, the
+   dispatch-mode contracts run with their inputs on the card, and the four
+   kernels' NaN-poisoned launches (``launch_audit.poisoned_launches``)
+   leave no NaN where their ``launch_grid`` writes and equal a normal
+   launch bit for bit; the phase within 180 s.
 
 Phases 1-10 run against an empty user autotune cache in a temporary file
 (``$REPRO_TORCH_AUTOTUNE_CACHE``), so the plans they launch are the shipped
@@ -5468,28 +5487,37 @@ class DryRunCells:
     """19c's dry-run CLI calls, one subprocess a cell, started together in
     the background; ``collect`` waits for them (each within
     ``DRY_CLI_TIMEOUT`` of its start) and ``stop`` kills any still
-    running.  A cell's wall runs from the start to its row file's write,
-    the process's last act."""
+    running.  A cell's wall runs from the start to the process's exit
+    (writing its row file is its last act), both on the monotonic clock:
+    a thread waits on each process and notes when it ends."""
 
     def __init__(self):
         import os
         import tempfile
+        import threading
         self.dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    REPRO_TORCH_DRYRUN_DIR=str(self.dir))
         self.procs = {}
+        self.ends = {}
         for arch, shape in DRY_CLI_CELLS:
             log = open(self.dir / f"{arch}__{shape}.log", "w")
             proc = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                  arch, "--shape", shape, "--mesh", "single"],
                 cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
-            self.procs[(arch, shape)] = (proc, log, time.time())
+            self.procs[(arch, shape)] = (proc, log, time.perf_counter())
+            threading.Thread(target=self._note_end, args=((arch, shape), proc),
+                             daemon=True).start()
+
+    def _note_end(self, cell, proc) -> None:
+        proc.wait()
+        self.ends[cell] = time.perf_counter()
 
     def collect(self) -> dict:
         out = {}
         for (arch, shape), (proc, log, t0) in self.procs.items():
-            left = max(1.0, DRY_CLI_TIMEOUT - (time.time() - t0))
+            left = max(1.0, DRY_CLI_TIMEOUT - (time.perf_counter() - t0))
             try:
                 rc = proc.wait(timeout=left)
             except subprocess.TimeoutExpired:
@@ -5498,10 +5526,12 @@ class DryRunCells:
             text = (self.dir / f"{arch}__{shape}.log").read_text()
             check(rc == 0, f"19c: dryrun {arch} x {shape} "
                   f"{'timed out' if rc is None else f'exited {rc}'} after "
-                  f"{time.time() - t0:.1f} s: {text[-2000:]}")
+                  f"{time.perf_counter() - t0:.1f} s: {text[-2000:]}")
+            while (arch, shape) not in self.ends:   # the waiting thread's note
+                time.sleep(0.01)
             path = self.dir / f"{arch}__{shape}__16x16.json"
             out[(arch, shape)] = {"row": json.loads(path.read_text()),
-                                  "wall_s": path.stat().st_mtime - t0}
+                                  "wall_s": self.ends[(arch, shape)] - t0}
         return out
 
     def stop(self) -> None:
@@ -5512,6 +5542,207 @@ class DryRunCells:
                 proc.wait()
             log.close()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+# Phase 20: the seven examples on the card, then the contract checker.
+PHASE20_LIMIT_S = 180.0
+EMB_REAL = ["--vocab", "151936", "--dim", "1024"]   # qwen3-0.6b's table
+EXAMPLE_RUNS = (
+    ("quickstart", []),
+    ("hosvd_compression", []),
+    ("embedding_compression", []),
+    ("embedding_compression", EMB_REAL),
+    ("galore_training", []),
+    ("train_lm", ["--preset", "100m", "--steps", "20"]),
+    ("serve_llm", []),
+    ("serve_llm", ["--kv-rank", "4", "--kv-compress-ratio", "2"]),
+    ("serve_llm", ["--arrival-rate", "200"]),
+    ("distributed_rsvd", []),
+)
+DISPATCH_CONTRACTS = ("srht-no-gemm", "sketch-dtype-flow",
+                      "stream-update-dtype-flow", "sketch-determinism",
+                      "stream-b-weak-audit")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import (factored_decode, flash_attention, shgemm,
+                                     shgemm_fused)
+    for mod in (shgemm, shgemm_fused, flash_attention, factored_decode):
+        mod.launches = 0
+
+
+def run_example(torch, dev, card, name: str, argv: list[str]) -> dict:
+    """``repro_torch.examples.<name>.main(argv)`` (on the card by its
+    default device; ``--device cpu`` only in a CPU rehearsal): its printed
+    lines, its numbers, its seconds and the launches of each kernel."""
+    import contextlib
+    import importlib
+    import io
+    from repro_torch.analysis.dispatch_passes import kernel_launches
+    if dev.type != "cuda":
+        argv = argv + ["--device", dev.type]
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    before = kernel_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    for line in buf.getvalue().splitlines():
+        print(f"[examples] {name}: {line}")
+    print(f"[examples] {name} {' '.join(argv) or '(defaults)'}: {secs:.2f} s, "
+          f"kernel launches {launches} [{card}]")
+    return {"out": out, "seconds": secs, "launches": launches}
+
+
+def phase20a_examples(torch, dev, card) -> dict:
+    import tempfile
+    import shutil
+    runs = {}
+    ck = tempfile.mkdtemp(prefix="chip-smoke-train-lm-")
+    try:
+        for name, argv in EXAMPLE_RUNS:
+            if name == "train_lm":
+                argv = argv + ["--ckpt-dir", ck]
+            runs[(name, " ".join(argv))] = run_example(torch, dev, card, name,
+                                                       argv)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+    def one(name, i=0):
+        return [r for (n, _), r in runs.items() if n == name][i]
+
+    q = one("quickstart")
+    res = q["out"]["residuals"]
+    check(q["launches"]["shgemm"] > 0 and q["launches"]["shgemm_fused"] > 0,
+          f"20a: quickstart launched kernels {q['launches']}")
+    for method, r in res.items():
+        if method != "lowp_single":
+            check(r <= 1.5 * res["f32"] + 1e-7,
+                  f"20a: quickstart {method} residual {r:.3e} > 1.5 x f32's "
+                  f"{res['f32']:.3e} + 1e-7")
+    h = one("hosvd_compression")["out"]["ranks"]
+    errs = [h[r]["rel_err"] for r in sorted(h)]
+    check(all(a > b for a, b in zip(errs, errs[1:]))
+          and all(h[r]["rel_err"] < 1e-4 for r in h if r >= 12),
+          f"20a: hosvd errors {errs}")
+    for i in (0, 1):
+        e = one("embedding_compression", i)["out"]["ranks"]
+        errs = [e[r]["rel_err"] for r in sorted(e)]
+        agree = [e[r]["agreement"] for r in sorted(e)]
+        check(all(a > b for a, b in zip(errs, errs[1:])) and agree[-1] > agree[0],
+              f"20a: embedding errors {errs}, agreement {agree}")
+    g = one("galore_training")["out"]
+    adam, gal = g["adamw"], g["galore(r=16)"]
+    check(all(v["losses"][-1] < v["losses"][0] for v in (adam, gal))
+          and gal["state_mb"] < adam["state_mb"],
+          f"20a: galore losses {adam['losses'][::39]}, {gal['losses'][::39]}, "
+          f"state {gal['state_mb']:.2f} vs {adam['state_mb']:.2f} MB")
+    t = one("train_lm")["out"]
+    check(t["losses"][-1] < t["losses"][0] and len(t["losses"]) == 20,
+          f"20a: train_lm losses {t['losses']}")
+    eng, comp, sch = (one("serve_llm", i)["out"] for i in range(3))
+    check(all(len(v) == 8 for v in eng["outputs"].values())
+          and len(eng["outputs"]) == 6, "20a: serve_llm engine outputs")
+    check(len(comp["kv_slots"]) == 3
+          and all(r["comp_len"] > 0 and r["ratio"] > 1 for r in comp["kv_slots"]),
+          f"20a: serve_llm compressed slots {comp['kv_slots']}")
+    check(sch["summary"]["completed"] == sch["requests"] == 6,
+          f"20a: serve_llm scheduler completed {sch['summary']['completed']}")
+    d = one("distributed_rsvd")["out"]
+    gap = max(abs(a - b) for a, b in zip(d["sigma"], d["sigma_one"]))
+    check(gap <= 1e-4 and d["rel_err"] < 1e-4,
+          f"20a: distributed sigma off the one-process rSVD by {gap:.2e}, "
+          f"rel_err {d['rel_err']:.3e}")
+    return runs
+
+
+class AnalysisCli:
+    """``python -m repro_torch.analysis`` in a subprocess from the repo
+    root (host cores only), started when phase 20 starts."""
+
+    def __init__(self):
+        import os
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.analysis"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def collect(self, timeout: float = 300.0) -> tuple[int | None, str, float]:
+        try:
+            text, _ = self.proc.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            text, _ = self.proc.communicate()
+            return None, text, time.perf_counter() - self.t0
+        return self.proc.returncode, text, time.perf_counter() - self.t0
+
+
+def phase20b_analysis(torch, dev, card, cli: AnalysisCli) -> dict:
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis.contracts import run_repo_contracts
+    from repro_torch.analysis.launch_audit import poisoned_launches
+    t0 = time.perf_counter()
+    found = run_repo_contracts(list(DISPATCH_CONTRACTS), device=dev)
+    contracts_s = time.perf_counter() - t0
+    print(f"[analysis] dispatch-mode contracts {list(DISPATCH_CONTRACTS)} with "
+          f"their inputs on {dev}: {len(found)} finding(s) in "
+          f"{contracts_s:.2f} s [{card}]")
+    check(not found, "20b: contracts on the card:\n" + F.render_text(found))
+    t0 = time.perf_counter()
+    poisoned = poisoned_launches(dev)
+    for name, r in poisoned.items():
+        print(f"[analysis] {name} launched into NaN-filled output and "
+              f"workspace: {r['nan_out']} NaN left in the output, "
+              f"{r['nan_workspace']} in the workspace elements its launch_grid "
+              f"writes; bit for bit a normal launch: {r['bitwise']}; "
+              f"launches {r['launches']} [{card}]")
+        check(r["nan_out"] == 0 and r["nan_workspace"] == 0 and r["bitwise"]
+              and r["into_out"] and (dev.type != "cuda" or r["launches"] == 1),
+              f"20b: {name} NaN-poisoned launch {r}")
+    poisoned_s = time.perf_counter() - t0
+    rc, text, secs = cli.collect()
+    tail = "\n".join(text.strip().splitlines()[-3:])
+    print(f"[analysis] python -m repro_torch.analysis: exit {rc} after "
+          f"{secs:.1f} s (started with phase 20): {tail}")
+    check(rc == 0, f"20b: the checker exited {rc}:\n{text[-3000:]}")
+    return {"contracts_s": contracts_s, "poisoned": poisoned,
+            "poisoned_s": poisoned_s, "cli_s": secs, "cli_tail": tail}
+
+
+def phase20(torch, dev, card) -> dict:
+    """Phase 20: the seven examples on the card (20a), then the checker
+    (20b); the kernels' launches of 20a counted from 0."""
+    t_phase = time.perf_counter()
+    cli = AnalysisCli()
+    try:
+        reset_launches()
+        runs = phase20a_examples(torch, dev, card)
+        from repro_torch.analysis.dispatch_passes import kernel_launches
+        launches = kernel_launches()
+        print(f"[examples] 20a's kernel launches (counts set to 0 before it): "
+              f"{launches}")
+        check(launches["shgemm"] > 0 and launches["shgemm_fused"] > 0,
+              f"20a: a kernel of the examples' path never launched: {launches}")
+        out = {"20a": runs, "launches": launches,
+               "20b": phase20b_analysis(torch, dev, card, cli)}
+    finally:
+        if cli.proc.poll() is None:
+            cli.proc.kill()
+            cli.proc.wait()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[examples] phase 20 took {out['seconds']:.1f} s [{card}]")
+    check(out["seconds"] <= PHASE20_LIMIT_S,
+          f"20: {out['seconds']:.1f} s > {PHASE20_LIMIT_S} s")
+    return out
 
 
 def cell_shape(kind: str, seq_batch):
@@ -6244,6 +6475,11 @@ def run(torch) -> int:
     finally:
         dry_cli.stop()
 
+    # -- 20. the examples and the contract checker ------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex20 = phase20(torch, dev, card)
+
     kernels = []
     for name, source, replaces, errkey in (
             ("shgemm", "src/repro_torch/kernels/csrc/shgemm.cu",
@@ -6320,6 +6556,9 @@ def run(torch) -> int:
                     "moe_launches": {"14d": moe14["14d"]["launches"],
                                      "14e": moe14["14e"]["launches"]},
                     "vlm_launches": {"17b": encdec17["17b"]["engine_launches"]}})
+    for rec in kernels:
+        rec["examples_launches"] = ex20["launches"][rec["name"]]
+        rec["poisoned_launch"] = ex20["20b"]["poisoned"][rec["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,11 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grid import Launch, LaunchPlan, Write
 from repro_torch.kernels import shgemm as _k
 from repro_torch.models.layers import factored_decode_attention as _oracle
 
@@ -135,6 +136,42 @@ def split_bounds(plan: DecodePlan, write_pos: int) -> list[tuple[int, int]]:
             for k in range(plan.splits)]
 
 
+def launch_grid(b: int, kvh: int, hd: int, r: int, g: int, plan: DecodePlan,
+                write_pos: int, comp_len) -> LaunchPlan:
+    """The launch of ``factored_decode_attention`` as ``launch`` in
+    ``csrc/factored_decode.cu`` makes it, at this clock and these
+    ``comp_len`` (per slot): the (P, b kvh) grid; block (p, row) takes
+    share p (``split_bounds``) of slot row / kvh, kv head row % kvh, and
+    writes its partial into workspace row (row, p): m and l of each of the
+    g heads always, acc_d when its share holds rows, acc_f where the slot
+    has a compressed prefix as well.  The block that draws the row's last
+    ticket merges the P partials and writes out[row / kvh, 0, the group's
+    g heads, :]."""
+    width = 2 + hd + r
+    bounds = split_bounds(plan, write_pos)
+    live = int(write_pos) + 1
+
+    def writes(idx):
+        p, row = idx
+        bb, kh = divmod(row, kvh)
+        start, end = bounds[p]
+        heads = slice(0, g)
+        out = [Write("workspace", (row, p, heads, slice(0, 2)))]
+        if end > start:
+            out.append(Write("workspace", (row, p, heads, slice(2, 2 + hd))))
+            if min(int(comp_len[bb]), live) > 0:
+                out.append(Write("workspace", (row, p, heads,
+                                                  slice(2 + hd, width))))
+        out.append(Write("out", (bb, 0, slice(kh * g, (kh + 1) * g),
+                                    slice(0, hd)), ticket=row))
+        return out
+
+    return LaunchPlan(
+        (Launch("fdec_kernel", (plan.splits, b * kvh), writes),),
+        {"out": (b, 1, kvh * g, hd),
+         "workspace": (b * kvh, plan.splits, g, width)}, ("out",))
+
+
 def factored_decode_plain(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
                           write_pos, *, scale: float,
                           cap: float = 0.0) -> torch.Tensor:
@@ -176,7 +213,8 @@ def _scratch_buffers(device: int, stream: int, tickets: int,
 def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
                               write_pos, *, scale: float, cap: float = 0.0,
                               block_kv: int | None = None,
-                              splits: int | None = None) -> torch.Tensor:
+                              splits: int | None = None,
+                              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, 1, H, hd); k/v: (B, S, KV, hd); k_us/v_us: (B, KV, S, r);
     k_vt/v_vt: (B, KV, r, hd); comp_len: (B,) int; write_pos: the decode
     clock, an int or a one-element int tensor (for CUDA tensors an int32
@@ -184,7 +222,7 @@ def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
     contract, and a clock outside [0, S) gives NaN).  ``block_kv`` is the
     grain of the split boundaries (``GRAIN`` by default) and ``splits`` pins
     P (``decode_plan`` by default); neither changes what is computed.
-    Returns (B, 1, H, hd) in q.dtype."""
+    Returns (B, 1, H, hd) in q.dtype, in ``out`` where given."""
     b, sq, h, hd = q.shape
     if sq != 1:
         raise ValueError(f"decode kernel is single-token; got S_q={sq}")
@@ -200,8 +238,10 @@ def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
     if h % kvh:
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if q.device.type == "cpu":
-        return factored_decode_plain(q, k, v, k_us, k_vt, v_us, v_vt,
-                                     comp_len, write_pos, scale=scale, cap=cap)
+        o = factored_decode_plain(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
+                                  write_pos, scale=scale, cap=cap)
+        return o if out is None else _k.check_out(
+            out, "out", tuple(q.shape), q.dtype, q.device).copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"factored_decode_attention runs on CUDA or CPU "
                          f"tensors, got {q.device}")
@@ -229,7 +269,8 @@ def factored_decode_attention(q, k, v, k_us, k_vt, v_us, v_vt, comp_len,
     for name, x in operands:   # the checks of check_launch_operand, cheaply
         if x.get_device() != dev or not x.is_contiguous() or x.data_ptr() % 16:
             _k.check_launch_operand(x, name, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q) if out is None else _k.check_out(
+        out, "out", tuple(q.shape), q.dtype, q.device)
     stream = torch._C._cuda_getCurrentRawStream(dev)
     tickets, ws = _scratch_buffers(dev, stream, b * kvh, plan.workspace)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -28,16 +28,20 @@ PyTorch version (``flash_attention_plain``) only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grid import Launch, LaunchPlan, Write
 from repro_torch.kernels import shgemm as _k
 
 # Query rows (all G heads of a group) per block, and its warps (32 rows
 # each).
 BLOCK_ROWS = 128
 WARPS = 4
+KV_TILE = 32       # keys a K/V tile (BKV in the kernel)
+STAGES = 2         # K/V tiles in the cp.async ring
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 GROUPS = tuple(range(1, 9))
@@ -99,6 +103,45 @@ def blocks_per_sm(hd: int, dtype=torch.bfloat16, device=None) -> int:
     return n
 
 
+def smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block (``Smem`` in the kernel's
+    source): the Q tile of ``BLOCK_ROWS`` rows and the ring of ``STAGES``
+    K and V tiles, every row hd elements padded by 8."""
+    elem = 4 if dtype == torch.float32 else 2
+    return (BLOCK_ROWS + STAGES * 2 * KV_TILE) * (hd + 8) * elem
+
+
+def query_rows(g: int) -> int:
+    """Positions of each of a group's ``g`` heads in one block: 16 *
+    (8 // g), so a block's 128 rows hold whole 16-row tiles of one head
+    (``bq`` in the kernel; 128 - g * bq rows are dead at g = 3, 5, 6, 7)."""
+    return 16 * (BLOCK_ROWS // 16 // g)
+
+
+def launch_grid(b: int, s: int, h: int, kv: int, hd: int, *,
+                causal: bool = True) -> LaunchPlan:
+    """The launch of ``flash_attention`` as ``launch`` in
+    ``csrc/flash_attention.cu`` makes it: the (ceil(s / bq), b kv) grid;
+    block (x, y) takes query block iq = x (iq = nq - 1 - x when causal:
+    the heavy blocks first) of batch y / kv and kv head y % kv, and writes
+    out[y / kv, iq bq : min((iq + 1) bq, s), the group's g heads, :]."""
+    g = h // kv
+    bq = query_rows(g)
+    nq = -(-s // bq)
+
+    def writes(idx):
+        x, y = idx
+        iq = nq - 1 - x if causal else x
+        bb, kvh = divmod(y, kv)
+        return [Write("out", (slice(bb, bb + 1),
+                                 slice(iq * bq, min((iq + 1) * bq, s)),
+                                 slice(kvh * g, (kvh + 1) * g),
+                                 slice(0, hd)))]
+
+    return LaunchPlan((Launch("flash_kernel", (nq, b * kv), writes),),
+                         {"out": (b, s, h, hd)}, ("out",))
+
+
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, s, h, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
@@ -111,15 +154,18 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd) in q.dtype."""
+                    causal: bool = True, scale: float | None = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, KV, hd) -> (B, S, H, hd) in q.dtype,
+    into ``out`` where given (else a new tensor)."""
     check_shapes(q, k, v)
     b, s, h, hd = q.shape
     if scale is None:
         scale = hd ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        o = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return o if out is None else _k.check_out(
+            out, "out", tuple(q.shape), q.dtype, q.device).copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
                          f"got {q.device}")
@@ -133,11 +179,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _k.check_launch_operand(x, name, q.device)
     # The kernel's softmax folds scale * log2(e) into one FMA and takes
     # scale > 0: q . k * s = (-q) . k * (-s), and at s = 0 every score is 0.
+    out = torch.empty_like(q) if out is None else _k.check_out(
+        out, "out", tuple(q.shape), q.dtype, q.device)
     if scale < 0:
         q, scale = -q, -scale
     elif scale == 0:
         q, scale = torch.zeros_like(q), 1.0
-    out = torch.empty_like(q)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       b, s, h, k.shape[2], hd, int(causal), float(scale),
                       int(q.dtype == torch.float32),

@@ -21,11 +21,13 @@ runs the plain PyTorch version (``shgemm_plain``) only for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grid import Launch, LaunchPlan, Write
 from repro_torch.kernels.ref import shgemm_ref
 
 # (bm, bn) instantiated in csrc/shgemm_splitk.cuh (``dispatch_tile``), for
@@ -39,6 +41,7 @@ DEFAULT_BN = 64
 DEFAULT_BK = 256
 RING = 3           # A stages in flight (csrc/shgemm_splitk.cuh)
 MAX_SPLITS = 65535  # the grid's third dimension
+REDUCE_THREADS = 128  # splitk_reduce's block (csrc/shgemm_splitk.cuh)
 
 # Kernel launches made by ``shgemm_pallas`` in this process, and how many of
 # them also launched the split-K reduction.
@@ -74,6 +77,54 @@ def check_launch_operand(x: torch.Tensor, name: str, device: torch.device) -> No
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def check_out(x: Optional[torch.Tensor], name: str, shape: tuple, dtype,
+              device: torch.device) -> torch.Tensor:
+    """A caller's ``out=`` (or workspace) buffer, checked; a new one where
+    the caller gave none."""
+    if x is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
+        raise ValueError(f"{name} must be {tuple(shape)} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    check_launch_operand(x, name, device)
+    return x
+
+
+def launch_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int,
+                splits: int, kernel: str = "shgemm_kernel") -> LaunchPlan:
+    """The launches of ``shgemm_pallas`` at the padded shape (m, n, k), as
+    ``launch_splitk`` in ``csrc/shgemm_splitk.cuh`` makes them (kernel 2's
+    too: the same main loop and launch).  The main loop runs on the
+    (n / bn, m / bm, splits) grid; block (x, y, z) computes C's rows
+    [y bm, (y + 1) bm) and columns [x bn, (x + 1) bn) over bk tiles
+    [z J / S, (z + 1) J / S) of the J = k / bk.  With one split it writes
+    that tile of C; with more it writes its tiles' partials into the
+    workspace W[J, m, n], and ``splitk_reduce``'s ceil(m n / 128) blocks
+    sum W into C, thread t of block i element 128 i + t of C."""
+    check_plan(m, n, k, bm, bn, bk, splits)
+    tiles = (k // bk) // splits
+
+    def main(idx):
+        x, y, z = idx
+        rows, cols = slice(y * bm, (y + 1) * bm), slice(x * bn, (x + 1) * bn)
+        if splits == 1:
+            return [Write("c", (rows, cols))]
+        return [Write("workspace", (slice(z * tiles, (z + 1) * tiles), rows,
+                                    cols))]
+
+    launches = [Launch(kernel, (n // bn, m // bm, splits), main)]
+    buffers = {"c": (m, n)}
+    if splits > 1:
+        mn = m * n
+        launches.append(Launch(
+            "splitk_reduce", (-(-mn // REDUCE_THREADS),),
+            lambda idx: [Write("c", (slice(idx[0] * REDUCE_THREADS,
+                                           min((idx[0] + 1) * REDUCE_THREADS,
+                                               mn)),), flat=True)]))
+        buffers["workspace"] = (k // bk, m, n)
+    return LaunchPlan(tuple(launches), buffers, tuple(buffers))
 
 
 def smem_bytes(bm: int, bn: int) -> int:
@@ -124,13 +175,17 @@ def blocks_per_sm(bm: int, bn: int, terms: int = 2, lowp=torch.bfloat16,
 
 def shgemm_pallas(a: torch.Tensor, b: torch.Tensor, *, bm: int = DEFAULT_BM,
                   bn: int = DEFAULT_BN, bk: int = DEFAULT_BK, splits: int = 1,
-                  terms: int = 2) -> torch.Tensor:
+                  terms: int = 2, out: Optional[torch.Tensor] = None,
+                  workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[m,n] = A[m,k] @ B[k,n]; A f32, B bf16/fp16, C f32.
 
     Shapes must be multiples of the block sizes; ``ops.shgemm`` pads
     arbitrary shapes before calling this.  ``splits`` (port only) must
     divide ``k / bk``; with more than one, a workspace of
     ``workspace_bytes`` is allocated and the reduction kernel launched too.
+    ``out`` (m, n) f32 and, with splits, ``workspace`` (k / bk, m, n) f32
+    are used where given (the launch audit's NaN-filled buffers), else
+    allocated.
     """
     m, k = a.shape
     k2, n = b.shape
@@ -144,16 +199,18 @@ def shgemm_pallas(a: torch.Tensor, b: torch.Tensor, *, bm: int = DEFAULT_BM,
     if terms not in (1, 2, 3) or (terms == 3 and b.dtype == torch.float16):
         raise ValueError(f"terms={terms} unsupported for {b.dtype}")
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return shgemm_plain(a, b, terms)
+        c = shgemm_plain(a, b, terms)
+        return c if out is None else check_out(out, "out", (m, n), torch.float32,
+                                               a.device).copy_(c)
     if a.device.type != "cuda":
         raise ValueError(f"shgemm_pallas runs on CUDA or CPU tensors, got {a.device}")
     check_launch_operand(a, "A", a.device)
     check_launch_operand(b, "B", a.device)
     if m // bm > 65535:
         raise ValueError(f"m={m} needs more than 65535 row blocks of {bm}")
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    w = (torch.empty((k // bk, m, n), dtype=torch.float32, device=a.device)
-         if splits > 1 else None)
+    c = check_out(out, "out", (m, n), torch.float32, a.device)
+    w = (check_out(workspace, "workspace", (k // bk, m, n), torch.float32,
+                   a.device) if splits > 1 else None)
     err = _launcher()(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       None if w is None else w.data_ptr(), m, n, k, bm, bn, bk,
                       splits, terms, int(b.dtype == torch.float16),

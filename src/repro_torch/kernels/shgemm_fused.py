@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels._grid import LaunchPlan
 from repro_torch.kernels import shgemm as _k
 
 SKETCH_DISTS = ("gaussian", "achlioptas", "very_sparse")
@@ -174,6 +176,14 @@ def smem_bytes(bm: int, bn: int) -> int:
     return _k.smem_bytes(bm, bn) + 2 * bn * 4
 
 
+def launch_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int,
+                splits: int) -> LaunchPlan:
+    """The launches of ``shgemm_fused_pallas`` at the padded shape: kernel
+    1's (``shgemm.launch_grid``), since both go through ``launch_splitk``
+    in ``csrc/shgemm_splitk.cuh``; only the B producer differs."""
+    return _k.launch_grid(m, n, k, bm, bn, bk, splits, kernel="fused_kernel")
+
+
 def _launcher():
     fn = _build.load("shgemm_fused").shgemm_fused_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -188,13 +198,16 @@ def shgemm_fused_pallas(a: torch.Tensor, words, n: int, *, bm: int, bn: int,
                         dist: str = "gaussian",
                         s: float = 3.0, store_dtype=None,
                         lowp_dtype=torch.bfloat16,
-                        offsets: tuple[int, int] = (0, 0)) -> torch.Tensor:
+                        offsets: tuple[int, int] = (0, 0),
+                        out: Optional[torch.Tensor] = None,
+                        workspace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[m, n] = A[m, k] @ Omega(words)[k+r0, n+c0]; Omega never touches
     device memory.  Shapes must be multiples of the block sizes;
     ``ops.shgemm_fused`` pads arbitrary shapes before calling this.
     ``splits`` must divide ``k / bk``; with more than one, a workspace of
     ``shgemm.workspace_bytes`` is allocated and the reduction kernel
-    launched too.  ``offsets`` is ``(row_offset, col_offset)``."""
+    launched too.  ``offsets`` is ``(row_offset, col_offset)``.  ``out``
+    and ``workspace`` are used where given, as in ``shgemm_pallas``."""
     m, k = a.shape
     if a.dtype != torch.float32:
         raise TypeError(f"A must be f32, got {a.dtype}")
@@ -213,19 +226,20 @@ def shgemm_fused_pallas(a: torch.Tensor, words, n: int, *, bm: int, bn: int,
     row_offset, col_offset = (int(o) for o in offsets)
     k0, k1 = key_pair(words)
     if a.device.type == "cpu":
-        return shgemm_fused_plain(a, (k0, k1), n, terms=terms, dist=dist, s=s,
-                                  store_dtype=store_dtype,
-                                  lowp_dtype=lowp_dtype,
-                                  row_offset=row_offset, col_offset=col_offset)
+        c = shgemm_fused_plain(a, (k0, k1), n, terms=terms, dist=dist, s=s,
+                               store_dtype=store_dtype, lowp_dtype=lowp_dtype,
+                               row_offset=row_offset, col_offset=col_offset)
+        return c if out is None else _k.check_out(
+            out, "out", (m, n), torch.float32, a.device).copy_(c)
     if a.device.type != "cuda":
         raise ValueError(f"shgemm_fused_pallas runs on CUDA or CPU tensors, "
                          f"got {a.device}")
     _k.check_launch_operand(a, "A", a.device)
     if m // bm > 65535:
         raise ValueError(f"m={m} needs more than 65535 row blocks of {bm}")
-    c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    w = (torch.empty((k // bk, m, n), dtype=torch.float32, device=a.device)
-         if splits > 1 else None)
+    c = _k.check_out(out, "out", (m, n), torch.float32, a.device)
+    w = (_k.check_out(workspace, "workspace", (k // bk, m, n), torch.float32,
+                      a.device) if splits > 1 else None)
     err = _launcher()(
         a.data_ptr(), c.data_ptr(), None if w is None else w.data_ptr(), m, n,
         k, k0, k1, row_offset & _MASK, col_offset & _MASK, bm, bn, bk, splits,

@@ -1333,3 +1333,27 @@ def test_dryrun_argument_bytes_are_the_cards_tensors(gen):
         R.step_for(cfg, shape)(params, batch)
     assert row["memory"]["argument_bytes"] == held
     assert row["flops"] == fc.get_total_flops()
+
+
+def test_poisoned_launches_leave_no_nan_and_equal_a_normal_launch(gen):
+    """The launch audit held against the kernels: each kernel's output (and
+    workspace) filled with NaN first — kernels 1 and 2 with 4 splits,
+    kernel 3 at G 7 causal, kernel 4 with P 4 — keeps no NaN where its
+    ``launch_grid`` says it writes, and equals a normal launch bit for
+    bit."""
+    from repro_torch.analysis.launch_audit import poisoned_launches
+    res = poisoned_launches("cuda")
+    for name, r in res.items():
+        assert r["nan_out"] == 0 and r["nan_workspace"] == 0, (name, r)
+        assert r["bitwise"] and r["into_out"] and r["launches"] == 1, (name, r)
+
+
+def test_dispatch_contracts_clean_on_card(gen):
+    """The dispatch-mode contracts with their inputs on the card: the
+    kernels launch through ctypes there, and the SRHT path launches none."""
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis.contracts import run_repo_contracts
+    got = run_repo_contracts(["srht-no-gemm", "sketch-dtype-flow",
+                              "stream-update-dtype-flow", "sketch-determinism",
+                              "stream-b-weak-audit"], device="cuda")
+    assert got == [], F.render_text(got)

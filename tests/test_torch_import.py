@@ -18,6 +18,7 @@ from repro_torch import main_path, stream
 from repro_torch.configs.paper_randnla import PAPER_HOSVD, PAPER_RSVD
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import hosvd, lstsq, projection as proj, rsvd, structured
+from repro_torch.examples import embedding_compression, serve_llm
 from repro_torch.device import resolve_device
 from repro_torch.kernels import autotune, ops, shgemm_fused as kf
 from repro_torch.launch import world
@@ -61,14 +62,15 @@ def test_import_pulls_in_no_jax_or_reference():
 
 @pytest.mark.parametrize("sub", ["models", "serve", "stream", "launch", "data",
                                  "core", "kernels", "optim", "train",
-                                 "sharding"])
+                                 "sharding", "examples", "analysis"])
 def test_serving_subpackages_import_without_jax(sub):
     """Each subpackage (the serving slice's; ``stream`` with its object-store
     and resilience modules; ``data`` with the token pipelines; ``launch``
     with the mesh, the world launcher and the train launcher; ``core`` with
     the distributed layer; ``kernels`` with the autotuner; ``optim`` with
     GaLore and compression; ``train`` with the loop and its checkpoints;
-    ``sharding`` with the specs and the mesh's collectives),
+    ``sharding`` with the specs and the mesh's collectives; ``examples``,
+    the reference's seven; ``analysis``, the contract checker),
     imported on its own in a fresh interpreter, leaves 'jax' and 'repro'
     out of sys.modules."""
     code = (f"import importlib, pkgutil, sys\n"
@@ -245,6 +247,12 @@ ENTRY_POINTS = {
         + (["--device", d["device"]] if d else [])),
     "materialize_inputs": lambda **d: R.materialize_inputs(
         _SMOKE, ShapeCfg("s", "decode", 4, 1), 0, **d),
+    "examples.serve_llm": lambda **d: serve_llm.main(
+        ["--requests", "1", "--max-new", "2", "--slots", "1"]
+        + (["--device", d["device"]] if d else [])),
+    "examples.embedding_compression": lambda **d: embedding_compression.main(
+        ["--vocab", "256", "--dim", "128", "--queries", "4"]
+        + (["--device", d["device"]] if d else [])),
     "launch.train": lambda **d: launch_train.main(
         ["--smoke", "--steps", "1", "--seq", "8", "--global-batch", "2",
          "--ckpt-dir", tempfile.mkdtemp()]

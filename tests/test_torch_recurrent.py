@@ -97,7 +97,9 @@ def _ref_cache(vals, dts):
 
 
 def _port_cache(vals, dts):
-    return {k: torch.from_numpy(v).to(TDT[dts[k]]) for k, v in vals.items()}
+    """A copy: the port writes its cache in place, and a numpy buffer it
+    shared could also back the reference's cache (jax may not copy it)."""
+    return {k: torch.tensor(v, dtype=TDT[dts[k]]) for k, v in vals.items()}
 
 
 def _f32(x):
